@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+
+Run from the repository root with one visible card:
+
+    python3 chip_smoke.py
+
+Phases, each printing one line:
+
+1. device: requires ``torch.cuda.is_available()``; prints the card's name
+   and power limit as ``nvidia-smi`` reports them.
+2. build: compiles the CUDA kernels from ``gym_flock_tpu_torch/csrc``.
+3. K1 (``block_sums``) against its plain PyTorch version on the card, for
+   both channel sets at B=16/N=4096, B=8192/N=100, a ragged B=3/N=1000 and
+   a cross-block case with overlapping global ids.  Tolerances: the degree
+   (channel 8) exactly, channel 9 (min r^2) within 1 ulp, every other sum
+   channel max |k - p| / (1 + |p|) < 1e-4 (the 1/r^4 channels are large and
+   the summation orders differ); unused channels exactly zero.  Kernel and
+   plain times: median of 7 CUDA-event timings after a warm-up.
+4. main path, ``FlockingLarge-v0`` (N=4096): ``batch_expert_rollout`` with
+   B=16 and 16 steps.  K1 must have launched exactly once per reset draw,
+   once for the reset's observation, once for the rollout's first pass and
+   once per step.  The first step's action ``u`` (atol 1e-4) and
+   observation (the feature-sum measure above, degree exact) are checked
+   against the plain functions on the same states.
+5. main path, ``FlockingRelative-v0`` (N=100): ``batch_expert_rollout`` with
+   B=8192 and 8 steps; the reset's acceptance test must have run on K1.
+
+Then one JSON line describing each kernel, and as the last line
+``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
+non-zero before the last line; without a card it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+SUM_TOL = 1e-4  # max |k - p| / (1 + |p|) on the summed channels
+U_ATOL = 1e-4
+REPS = 7
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def time_ms(fn) -> float:
+    """Median over REPS CUDA-event timings of ``fn()``, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def sum_channels(channels: str):
+    return list(range(8)) + ([10, 11] if channels == "full" else [])
+
+
+def compare_sums(got, want, channels: str) -> dict:
+    """Hold a K1 result against the plain one; raises on a breach and
+    returns the measured errors."""
+    import torch
+
+    n_used = 12 if channels == "full" else 9
+    if not (torch.isfinite(got[..., :9]).all() and torch.isfinite(want[..., :9]).all()):
+        raise AssertionError("non-finite K1 sums")
+    if not torch.equal(got[..., 8], want[..., 8]):
+        bad = int((got[..., 8] != want[..., 8]).sum())
+        raise AssertionError(f"degree (channel 8) differs in {bad} rows")
+    if not torch.equal(got[..., n_used:], torch.zeros_like(got[..., n_used:])):
+        raise AssertionError("unused channels are not zero")
+    sums = sum_channels(channels)
+    g, w = got[..., sums], want[..., sums]
+    rel = float(((g - w).abs() / (1.0 + w.abs())).max())
+    if not rel < SUM_TOL:
+        raise AssertionError(f"sum channels: max |k-p|/(1+|p|) = {rel:.3e} >= {SUM_TOL}")
+    ulp = 0
+    if channels == "full":
+        k9, p9 = got[..., 9], want[..., 9]
+        if not (torch.isfinite(k9).all() and (k9 >= 0).all() and (p9 >= 0).all()):
+            raise AssertionError("channel 9 not finite and non-negative")
+        # non-negative floats order like their bit patterns
+        ulp = int((k9.view(torch.int32) - p9.view(torch.int32)).abs().max())
+        if ulp > 1:
+            raise AssertionError(f"channel 9 (min r^2) differs by {ulp} ulp")
+    abs_err = float((got[..., :n_used] - want[..., :n_used]).abs().max())
+    return {"rel": rel, "ulp9": ulp, "abs": abs_err}
+
+
+def draw_swarms(n_envs: int, n_agents: int, device: str, seed: int):
+    """Swarms drawn as the reset draws them (positions over the disk of
+    radius sqrt(sqrt(N)), velocities up to +-10)."""
+    import torch
+
+    from gym_flock_tpu_torch.envs.flocking import FlockingParams, FlockingRelativeEnv
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return FlockingRelativeEnv()._draw(gen, FlockingParams(n_agents=n_agents), n_envs)
+
+
+def phase_kernel_check(device: str, shapes) -> dict:
+    """Phase 3: K1 against the plain version for each case; returns the
+    worst errors and the timings."""
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+    cr = 0.9
+    cr2 = cr * cr
+    worst = {"rel": 0.0, "ulp9": 0, "abs": 0.0}
+    cases = []
+    for b, n in shapes:
+        x = draw_swarms(b, n, device, SEED + n)
+        cases.append((f"B={b},N={n}", x, x, 0, 0))
+    # cross block: rows are agents 0..699, columns 300..999 of the same swarm,
+    # so ids 300..699 appear on both sides and their self pairs must drop
+    x = draw_swarms(3, 1000, device, SEED + 1)
+    cases.append(("cross B=3,rows 0-699,cols 300-999",
+                  x[:, :700].contiguous(), x[:, 300:].contiguous(), 0, 300))
+    for name, xr, xc, ro, co in cases:
+        for channels in ("core", "full"):
+            got = k1.flocking_sums_block(xr, xc, ro, co, cr, cr2, channels=channels)
+            want = k1.flocking_sums_block_reference(xr, xc, ro, co, cr, cr2, channels)
+            _sync()
+            err = compare_sums(got, want, channels)
+            worst = {k: max(worst[k], err[k]) for k in worst}
+    timings = []
+    for b, n in shapes[:2]:
+        x = draw_swarms(b, n, device, SEED + n)
+        ms = time_ms(lambda: k1.flocking_sums_block(x, x, 0, 0, cr, cr2, channels="core"))
+        plain = time_ms(lambda: k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr2, "core"))
+        timings.append({"B": b, "N": n, "channels": "core", "ms": ms, "plain_ms": plain,
+                        "gpairs_per_s": b * n * n / (ms * 1e6)})
+    return {"worst": worst, "cases": len(cases) * 2, "timings": timings}
+
+
+def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
+    """Phase 4: FlockingLarge-v0's expert rollout through K1."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs.flocking import _integrate
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout
+
+    env, params = gft.make("FlockingLarge-v0", **overrides)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    gen_state = gen.get_state()
+    _sync()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    final, traj = batch_expert_rollout(env, params, gen, n_envs, n_steps)
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = k1.launches
+    tries = env.last_reset_tries
+    expected = tries + 1 + 1 + n_steps
+    if launches != expected:
+        raise AssertionError(
+            f"K1 launches {launches} != {tries} reset draws + 1 + 1 + {n_steps} steps")
+    for key in ("u", "reward", "values", "network"):
+        if not torch.isfinite(traj[key]).all():
+            raise AssertionError(f"non-finite {key} in the FlockingLarge rollout")
+
+    # the same start state again (same generator state: same draws), then
+    # the first step on the plain functions
+    replay = torch.Generator(device=device)
+    replay.set_state(gen_state)
+    state0, _ = env.reset_env(replay, params, n_envs)
+    x0 = state0.x
+    s0 = k1.flocking_sums_block_reference(x0, x0, 0, 0, params.comm_radius,
+                                          params.comm_radius2, "core")
+    _, _, gx, gy, dvx, dvy = env._unpack_sums(s0, x0, params.centralized)
+    u_plain = env._rollout_action(torch.stack((-gx - dvx, -dvy - gy), dim=-1), params)
+    u_err = float((traj["u"][:, 0] - u_plain).abs().max())
+    if not u_err <= U_ATOL:
+        raise AssertionError(f"first-step u differs from plain by {u_err:.3e}")
+    x1 = _integrate(x0, traj["u"][:, 0] * params.action_scalar, params.dt)
+    s1 = k1.flocking_sums_block_reference(x1, x1, 0, 0, params.comm_radius,
+                                          params.comm_radius2, "core")
+    if not torch.equal(traj["network"][:, 0], s1[..., 8]):
+        raise AssertionError("first-step degree differs from plain")
+    v_rel = float(((traj["values"][:, 0] - s1[..., 0:6]).abs()
+                   / (1.0 + s1[..., 0:6].abs())).max())
+    if not v_rel < SUM_TOL:
+        raise AssertionError(f"first-step values differ from plain: {v_rel:.3e}")
+
+    # the rollout alone, without the reset's draws
+    _sync()
+    t1 = time.perf_counter()
+    env.expert_rollout(final, params, n_steps)
+    _sync()
+    roll_s = time.perf_counter() - t1
+    n = params.n_agents
+    return {
+        "launches": launches, "reset_tries": tries, "u_err": u_err, "values_rel": v_rel,
+        "seconds": seconds, "rollout_seconds": roll_s,
+        "env_steps_per_s": n_envs * n_steps / seconds,
+        "agent_steps_per_s": n_envs * n_steps * n / seconds,
+        "rollout_env_steps_per_s": n_envs * n_steps / roll_s,
+        "rollout_agent_steps_per_s": n_envs * n_steps * n / roll_s,
+        "mean_reward": float(traj["reward"].mean()),
+    }
+
+
+def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
+    """Phase 5: FlockingRelative-v0's expert rollout (K1 in the reset)."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout
+
+    env, params = gft.make("FlockingRelative-v0", **overrides)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _sync()
+    k1.launches = 0
+    t0 = time.perf_counter()
+    final, traj = batch_expert_rollout(env, params, gen, n_envs, n_steps)
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = k1.launches
+    tries = env.last_reset_tries
+    if launches != tries or launches == 0:
+        raise AssertionError(f"K1 launches {launches}, reset draws {tries}")
+    n = params.n_agents
+    shapes = {"u": (n_envs, n_steps, n, 2), "values": (n_envs, n_steps, n, 6),
+              "network": (n_envs, n_steps, n, n), "reward": (n_envs, n_steps)}
+    for key, shape in shapes.items():
+        if tuple(traj[key].shape) != shape:
+            raise AssertionError(f"{key} has shape {tuple(traj[key].shape)}, not {shape}")
+        if not torch.isfinite(traj[key]).all():
+            raise AssertionError(f"non-finite {key} in the FlockingRelative rollout")
+    del traj
+    _sync()
+    t1 = time.perf_counter()
+    env.expert_rollout(final, params, n_steps)
+    _sync()
+    roll_s = time.perf_counter() - t1
+    return {
+        "launches": launches, "reset_tries": tries, "seconds": seconds,
+        "rollout_seconds": roll_s,
+        "env_steps_per_s": n_envs * n_steps / seconds,
+        "rollout_env_steps_per_s": n_envs * n_steps / roll_s,
+    }
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check needs a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from gym_flock_tpu_torch.ops import _build
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(smi)
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"phase 1 device: {kind}, count {count}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}")
+    device = "cuda"
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    regs = "; ".join(line.strip() for line in _build.build_log.splitlines()
+                     if "registers" in line)
+    print(f"phase 2 build: {build_s:.2f} s ({_build.library_path().name}) {regs}")
+    _sync()
+
+    # 3. K1 against its plain version
+    k = phase_kernel_check(device, [(16, 4096), (8192, 100), (3, 1000)])
+    _sync()
+    print("phase 3 K1 vs plain: " + json.dumps(k))
+
+    # 4. FlockingLarge-v0 main path
+    large = phase_large(device, n_envs=16, n_steps=16)
+    _sync()
+    print("phase 4 FlockingLarge-v0 B=16 N=4096 16 steps: " + json.dumps(large))
+
+    # 5. FlockingRelative-v0 main path
+    rel = phase_relative(device, n_envs=8192, n_steps=8)
+    _sync()
+    print("phase 5 FlockingRelative-v0 B=8192 N=100 8 steps: " + json.dumps(rel))
+
+    big = k["timings"][0]
+    print(json.dumps({"kernels": [{
+        "name": "block_sums",
+        "route": "cuda",
+        "source": "gym_flock_tpu_torch/csrc/block_sums.cu",
+        "replaces": "gym_flock_tpu/ops/pallas_flocking.py:268",
+        "launches": large["launches"] + rel["launches"],
+        "max_abs_err": k["worst"]["abs"],
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "timings": k["timings"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""gym_flock_tpu_torch: the PyTorch/CUDA port of ``gym_flock_tpu``.
+
+Batched swarm environments on one NVIDIA GPU: every tensor leads with the
+batch of envs, randomness comes from explicit ``torch.Generator``s, and the
+pairwise flocking pass runs on a CUDA kernel written for Hopper
+(``csrc/block_sums.cu``, built with ``nvcc`` at first use).  On CPU tensors
+the same functions run their plain PyTorch versions.
+
+    import torch
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout
+
+    env, params = gft.make("FlockingRelative-v0")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    final, traj = batch_expert_rollout(env, params, gen, n_envs=1024, n_steps=8)
+"""
+from gym_flock_tpu_torch.core.registry import make, register, registry
+from gym_flock_tpu_torch import _register_all  # noqa: F401  (populates registry)
+
+__all__ = ["make", "register", "registry"]

@@ -1,0 +1,21 @@
+"""Populate the registry with the env ids ported so far, with their
+``max_episode_steps`` as in ``gym_flock_tpu/_register_all.py``."""
+from __future__ import annotations
+
+import dataclasses
+
+from gym_flock_tpu_torch.core.registry import register
+from gym_flock_tpu_torch.envs.flocking import FlockingRelativeEnv, LargeFlockingEnv
+
+
+def _flocking_factory(cls):
+    def factory(**kwargs):
+        env = cls()
+        params = dataclasses.replace(env.default_params(), **kwargs)
+        return env, params
+
+    return factory
+
+
+register("FlockingRelative-v0", _flocking_factory(FlockingRelativeEnv), 1000)
+register("FlockingLarge-v0", _flocking_factory(LargeFlockingEnv), 1000)

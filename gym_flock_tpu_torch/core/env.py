@@ -1,0 +1,105 @@
+"""Batched environment protocol (counterpart of ``gym_flock_tpu/core/env.py``).
+
+An :class:`Env` is a namespace of functions over a frozen-dataclass state
+whose tensors carry the batch of environments as their leading dimension:
+
+    state, obs                = env.reset_env(generator, params, n_envs)
+    state, obs, r, done, info = env.step_env(generator, state, action, params)
+    action                    = env.controller(state, params)
+
+``reward`` is ``[B]`` and ``done`` a ``[B]`` bool tensor.  Randomness comes
+from an explicit ``torch.Generator``; every tensor an env creates lies on
+that generator's device.  PyTorch runs eagerly, so there are no jitted
+wrappers: ``reset_env``/``step_env`` are the entry points.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Generic, Tuple, TypeVar
+
+import torch
+
+from gym_flock_tpu_torch.core.spaces import Space
+
+TParams = TypeVar("TParams")
+TState = TypeVar("TState")
+Obs = Any
+Action = Any
+
+__all__ = ["Env", "EnvState", "step_autoreset"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvState:
+    """Base for env states: every state carries the step counter."""
+
+    time: torch.Tensor  # int32 [B], steps since reset
+
+
+class Env(Generic[TParams, TState]):
+    """Abstract batched environment; subclasses implement the methods."""
+
+    def default_params(self) -> TParams:
+        raise NotImplementedError
+
+    def reset_env(
+        self, generator: torch.Generator, params: TParams, n_envs: int
+    ) -> Tuple[TState, Obs]:
+        raise NotImplementedError
+
+    def step_env(
+        self, generator: torch.Generator, state: TState, action: Action,
+        params: TParams,
+    ) -> Tuple[TState, Obs, torch.Tensor, torch.Tensor, Dict[str, Any]]:
+        raise NotImplementedError
+
+    def controller(self, state: TState, params: TParams) -> Action:
+        """Expert action (reference ``env.controller()``)."""
+        raise NotImplementedError
+
+    def observation_space(self, params: TParams) -> Space:
+        raise NotImplementedError
+
+    def action_space(self, params: TParams) -> Space:
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+
+def _select(done: torch.Tensor, a, b):
+    """``b`` where ``done`` else ``a``, over tensors, tuples and dataclasses
+    whose tensors lead with the batch dimension."""
+    if isinstance(a, torch.Tensor):
+        mask = done.reshape(done.shape + (1,) * (a.dim() - 1))
+        return torch.where(mask, b, a)
+    if isinstance(a, tuple):
+        return tuple(_select(done, x, y) for x, y in zip(a, b))
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: _select(done, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)
+        })
+    raise TypeError(f"cannot select over {type(a).__name__}")
+
+
+def step_autoreset(
+    env: Env, generator: torch.Generator, state: TState, action: Action,
+    params: TParams,
+):
+    """Step and, where ``done``, replace the state with a fresh reset.
+
+    The terminal observation is returned in ``info['terminal_obs']``; ``obs``
+    is the post-reset observation where ``done``.  The batch is reset (and
+    the generator advanced) only on steps where some env is done.
+    """
+    st, obs_step, reward, done, info = env.step_env(generator, state, action, params)
+    new_state, new_obs = st, obs_step
+    if bool(done.any()):
+        st_reset, obs_reset = env.reset_env(generator, params, done.shape[0])
+        new_state = _select(done, st, st_reset)
+        new_obs = _select(done, obs_step, obs_reset)
+    info = dict(info)
+    info["terminal_obs"] = obs_step
+    return new_state, new_obs, reward, done, info

@@ -1,0 +1,469 @@
+"""Flocking environments in PyTorch, batched (counterpart of
+``gym_flock_tpu/envs/flocking.py``).
+
+So far: ``FlockingRelativeEnv`` (``FlockingRelative-v0``) and
+``LargeFlockingEnv`` (``FlockingLarge-v0``).  Every tensor leads with the
+batch of swarms: ``x`` is ``[B, N, 4]`` rows of (px, py, vx, vy).
+
+At small N the fused observation/expert pass is dense PyTorch over
+``[B, N, N]`` pair tensors, as the JAX package computes it with dense XLA
+ops.  ``LargeFlockingEnv`` computes every pairwise reduction through K1
+(``ops.flocking_sums``), and both envs' reset acceptance test runs on K1's
+"full" channels (min r^2 and degree).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict
+
+import torch
+
+from gym_flock_tpu_torch.core.env import Env, EnvState
+from gym_flock_tpu_torch.core.spaces import Box
+from gym_flock_tpu_torch.ops.flocking_sums import (
+    flocking_features_large,
+    flocking_sums,
+    flocking_sums_block,
+    turner_controller_large,
+)
+from gym_flock_tpu_torch.ops.pairwise import mean_pool_normalize, radius_adjacency
+
+__all__ = [
+    "FlockingParams",
+    "FlockingState",
+    "FlockingRelativeEnv",
+    "LargeFlockingEnv",
+    "flocking_features",
+    "flocking_obs_expert_pass",
+    "turner_controller",
+    "turner_potential_grad",
+]
+
+
+# =============================================================================
+# Params / State
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class FlockingParams:
+    """Parameters of the flocking family; defaults mirror reference
+    flocking_relative.py:27-64.
+
+    Left out until their variants are ported: ``n_leaders``,
+    ``n_obstacles``, ``n_neighbors``, ``verlet_skin``, ``parity_exact``,
+    ``dt_mean``, ``dt_sigma``, ``stoch_scale`` and ``stoch_max_accel``
+    (the Leader, Obstacle, Absolute, Sparse, parity-mode and Stochastic
+    envs read them; the two envs here do not).
+    """
+
+    n_agents: int = 100
+    max_steps: int = 1000
+    mean_pooling: bool = True
+    centralized: bool = True
+    # rejection-sampling reset: bounded trip count (the reference loops
+    # unboundedly, flocking_relative.py:164)
+    max_reset_tries: int = 64
+    # reference params_from_cfg scales r_max by sqrt(n) (flocking_relative.py:75)
+    auto_scale_r_max: bool = True
+    comm_radius: float = 0.9
+    dt: float = 0.01
+    v_max: float = 5.0
+    r_max: float = 1.0
+    action_scalar: float = 10.0
+    max_accel: float = 1.0
+    min_dist_thresh: float = 0.1
+
+    @property
+    def comm_radius2(self) -> float:
+        return self.comm_radius * self.comm_radius
+
+    @property
+    def v_bias(self) -> float:
+        return self.v_max
+
+    @property
+    def r_max_eff(self) -> float:
+        if self.auto_scale_r_max:
+            return self.r_max * math.sqrt(self.n_agents)
+        return self.r_max
+
+
+@dataclasses.dataclass(frozen=True)
+class FlockingState(EnvState):
+    """x: [B, N, 4]; mean_vel [B, 2] and init_vel [B, N, 2] cached as in the
+    reference."""
+
+    x: torch.Tensor
+    mean_vel: torch.Tensor
+    init_vel: torch.Tensor
+
+
+def _state_from_x(x: torch.Tensor) -> FlockingState:
+    return FlockingState(
+        time=torch.zeros(x.shape[0], dtype=torch.int32, device=x.device),
+        x=x,
+        mean_vel=x[..., 2:4].mean(dim=-2),
+        init_vel=x[..., 2:4],
+    )
+
+
+# =============================================================================
+# Dense pairwise functions
+# =============================================================================
+
+
+def _pairwise_channels(x: torch.Tensor):
+    """Channel-separated pairwise diffs ``(dx, dy, dvx, dvy, r2)``, each
+    ``[B, N, N]``, row minus column; r2 is +inf on the diagonal."""
+    px, py, vx, vy = x.unbind(dim=-1)
+    dx = px[..., :, None] - px[..., None, :]
+    dy = py[..., :, None] - py[..., None, :]
+    dvx = vx[..., :, None] - vx[..., None, :]
+    dvy = vy[..., :, None] - vy[..., None, :]
+    r2 = dx * dx + dy * dy
+    n = x.shape[-2]
+    eye = torch.eye(n, dtype=torch.bool, device=x.device)
+    r2 = torch.where(eye, torch.inf, r2)
+    return dx, dy, dvx, dvy, r2
+
+
+def _feature_sums(dx, dy, dvx, dvy, r2, adj):
+    """The six observation sums (reference flocking_relative.py:124-128):
+    0 dvx, 1 dx/r^4, 2 dx/r^2, 3 dvy, 4 dy/r^4, 5 dy/r^2, over neighbors."""
+    inv = 1.0 / r2
+    inv2 = inv * inv
+    return torch.stack(
+        (
+            (dvx * adj).sum(dim=-1),
+            (dx * inv2 * adj).sum(dim=-1),
+            (dx * inv * adj).sum(dim=-1),
+            (dvy * adj).sum(dim=-1),
+            (dy * inv2 * adj).sum(dim=-1),
+            (dy * inv * adj).sum(dim=-1),
+        ),
+        dim=-1,
+    )
+
+
+def flocking_features(x: torch.Tensor, comm_radius2):
+    """The ``compute_helpers`` pass (reference flocking_relative.py:111-134).
+
+    Returns ``(state_values [B,N,6], adj [B,N,N], adj_mean [B,N,N],
+    r2 [B,N,N])``.
+    """
+    dx, dy, dvx, dvy, r2 = _pairwise_channels(x)
+    adj = radius_adjacency(r2, comm_radius2)
+    adj_mean = mean_pool_normalize(adj)
+    return _feature_sums(dx, dy, dvx, dvy, r2, adj), adj, adj_mean, r2
+
+
+def turner_potential_grad(pos_diff_c: torch.Tensor, r2: torch.Tensor, comm_radius):
+    """Gradient of the Turner-2003 flocking potential (reference :214-226).
+
+    The reference's quirk is kept: the cutoff compares ``r2`` (distance
+    SQUARED) with ``comm_radius`` (NOT squared), flocking_relative.py:225.
+    """
+    inv = 1.0 / r2
+    inv2 = inv * inv
+    grad = -2.0 * (pos_diff_c * inv2) + 2.0 * (pos_diff_c * inv)
+    return torch.where(r2 > comm_radius, 0.0, grad)
+
+
+def turner_controller(
+    x: torch.Tensor, params: FlockingParams, centralized: bool | None = None
+) -> torch.Tensor:
+    """Turner-2003 potential-field expert (reference flocking_relative.py:194-212):
+    ``-(sum_j grad + sum_j dv)``, clipped to [-10, 10], over ``action_scalar``.
+    Decentralized mode masks both terms by the adjacency."""
+    if centralized is None:
+        centralized = params.centralized
+    dx, dy, dvx, dvy, r2 = _pairwise_channels(x)
+    gx = turner_potential_grad(dx, r2, params.comm_radius)
+    gy = turner_potential_grad(dy, r2, params.comm_radius)
+    if not centralized:
+        adj = radius_adjacency(r2, params.comm_radius2)
+        dvx, dvy, gx, gy = dvx * adj, dvy * adj, gx * adj, gy * adj
+    controls = torch.stack(
+        (-gx.sum(dim=-1) - dvx.sum(dim=-1), -dvy.sum(dim=-1) - gy.sum(dim=-1)),
+        dim=-1,
+    )
+    return controls.clamp(-10.0, 10.0) / params.action_scalar
+
+
+def flocking_obs_expert_pass(
+    x: torch.Tensor, params: FlockingParams, centralized: bool = True
+):
+    """One pairwise pass giving everything the observation AND the Turner
+    expert need at state ``x``.
+
+    Returns ``(values [B,N,6], network [B,N,N], s_gx, s_gy, s_dvx, s_dvy)``,
+    the last four ``[B,N]``: the expert's summed potential gradients and
+    velocity differences (adjacency-masked when ``centralized=False``).
+    Centralized velocity sums use the closed form
+    ``sum_j (v_i - v_j) = N v_i - sum_j v_j``.
+    """
+    dx, dy, dvx, dvy, r2 = _pairwise_channels(x)
+    adj = radius_adjacency(r2, params.comm_radius2)
+    values = _feature_sums(dx, dy, dvx, dvy, r2, adj)
+    network = mean_pool_normalize(adj) if params.mean_pooling else adj
+    gx = turner_potential_grad(dx, r2, params.comm_radius)
+    gy = turner_potential_grad(dy, r2, params.comm_radius)
+    if centralized:
+        n = x.shape[-2]
+        s_dvx = n * x[..., 2] - x[..., 2].sum(dim=-1, keepdim=True)
+        s_dvy = n * x[..., 3] - x[..., 3].sum(dim=-1, keepdim=True)
+    else:
+        # decentralized velocity-consensus sums ARE feature channels 0/3
+        gx, gy = gx * adj, gy * adj
+        s_dvx, s_dvy = values[..., 0], values[..., 3]
+    return values, network, gx.sum(dim=-1), gy.sum(dim=-1), s_dvx, s_dvy
+
+
+def _instant_cost(x: torch.Tensor) -> torch.Tensor:
+    """``[B]`` minus the summed velocity variances (reference
+    flocking_relative.py:145-147); ``correction=0`` is NumPy's ddof=0."""
+    v = x[..., 2:4]
+    return -1.0 * torch.var(v, dim=-2, correction=0).sum(dim=-1)
+
+
+def _integrate(x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
+    """Euler double-integrator update (reference flocking_relative.py:98-105)."""
+    ux, uy = u[..., 0], u[..., 1]
+    px = x[..., 0] + x[..., 2] * dt + ux * dt * dt * 0.5
+    py = x[..., 1] + x[..., 3] * dt + uy * dt * dt * 0.5
+    vx = x[..., 2] + ux * dt
+    vy = x[..., 3] + uy * dt
+    return torch.stack((px, py, vx, vy), dim=-1)
+
+
+# =============================================================================
+# Envs
+# =============================================================================
+
+
+class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
+    """2D double-integrator swarms with relative-feature observations.
+
+    Observation: ``(state_values [B,N,6], state_network [B,N,N])``.  Reward:
+    minus the summed velocity variances, ``[B]``.  ``done`` is the time
+    limit ``params.max_steps``.  ``last_reset_tries`` holds the number of
+    batch draws the latest :meth:`reset_env` took.
+    """
+
+    last_reset_tries: int = 0
+
+    def default_params(self) -> FlockingParams:
+        return FlockingParams()
+
+    # ------------------------------------------------------------ helpers
+
+    def _obs(self, state: FlockingState, params: FlockingParams):
+        values, adj, adj_mean, _ = flocking_features(state.x, params.comm_radius2)
+        return values, (adj_mean if params.mean_pooling else adj)
+
+    def _action_scale(self, params: FlockingParams):
+        return params.action_scalar
+
+    def _draw(self, generator: torch.Generator, params: FlockingParams, n_envs: int):
+        """One reset proposal for the whole batch: positions uniform over the
+        disk of radius sqrt(r_max_eff), velocities uniform in
+        [-v_max, v_max] plus a per-swarm bias (flocking_relative.py:167-174)."""
+        n, dev = params.n_agents, generator.device
+
+        def uniform(shape, low, high):
+            u = torch.rand(shape, generator=generator, device=dev)
+            return low + (high - low) * u
+
+        length = torch.sqrt(uniform((n_envs, n), 0.0, params.r_max_eff))
+        angle = math.pi * uniform((n_envs, n), 0.0, 2.0)
+        bias = uniform((n_envs, 2), -params.v_bias, params.v_bias)
+        vx = uniform((n_envs, n), -params.v_max, params.v_max)
+        vy = uniform((n_envs, n), -params.v_max, params.v_max)
+        return torch.stack(
+            (
+                length * torch.cos(angle),
+                length * torch.sin(angle),
+                vx + bias[:, 0:1],
+                vy + bias[:, 1:2],
+            ),
+            dim=-1,
+        )
+
+    def _reset_accept(self, x: torch.Tensor, params: FlockingParams) -> torch.Tensor:
+        """``[B]`` acceptance of the rejection-sampling reset (reference
+        flocking_relative.py:164): min degree >= 2 and min pairwise distance
+        > ``min_dist_thresh``, from K1's channels 8 and 9."""
+        s = flocking_sums_block(
+            x, x, 0, 0, params.comm_radius, params.comm_radius2, channels="full"
+        )
+        degree = s[..., 8].amin(dim=-1)
+        min_dist = torch.sqrt(s[..., 9].amin(dim=-1))
+        return (degree >= 2) & (min_dist > params.min_dist_thresh)
+
+    # ------------------------------------------------------------ protocol
+
+    def reset_env(self, generator: torch.Generator, params: FlockingParams, n_envs: int):
+        """Rejection-sampling reset (reference flocking_relative.py:156-192).
+
+        Each try redraws the whole batch; an env keeps its first accepted
+        draw.  After ``params.max_reset_tries`` draws an env that never
+        accepted keeps its LAST draw, as the JAX ``while_loop`` does.
+        """
+        x = self._draw(generator, params, n_envs)
+        ok = self._reset_accept(x, params)
+        tries = 1
+        while tries < params.max_reset_tries and not bool(ok.all()):
+            x_new = self._draw(generator, params, n_envs)
+            ok_new = self._reset_accept(x_new, params)
+            x = torch.where(ok[:, None, None], x, x_new)
+            ok = ok | ok_new
+            tries += 1
+        self.last_reset_tries = tries
+        state = _state_from_x(x)
+        return state, self._obs(state, params)
+
+    def init_state(self, x: torch.Tensor, params: FlockingParams) -> FlockingState:
+        """A state from an externally supplied ``[B, N, 4]`` tensor."""
+        if x.dim() != 3 or x.shape[1:] != (params.n_agents, 4):
+            raise ValueError(
+                f"x must be [B, {params.n_agents}, 4], got {tuple(x.shape)}"
+            )
+        return _state_from_x(x)
+
+    def step_env(self, generator, state: FlockingState, action, params: FlockingParams):
+        """Deterministic dynamics: ``generator`` is not used."""
+        x = _integrate(state.x, action * self._action_scale(params), params.dt)
+        new_state = dataclasses.replace(state, x=x, time=state.time + 1)
+        obs = self._obs(new_state, params)
+        reward = _instant_cost(x)
+        done = new_state.time >= params.max_steps
+        return new_state, obs, reward, done, {}
+
+    def controller(self, state: FlockingState, params: FlockingParams, centralized=None):
+        return turner_controller(state.x, params, centralized)
+
+    # ---------------------------------------------------- fused expert rollout
+
+    def _fused_pass(self, x: torch.Tensor, params: FlockingParams, centralized: bool):
+        """``(values, network, s_gx, s_gy, s_dvx, s_dvy)`` at ``x``."""
+        return flocking_obs_expert_pass(x, params, centralized)
+
+    def expert_rollout(
+        self,
+        state: FlockingState,
+        params: FlockingParams,
+        n_steps: int,
+        centralized: bool | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        """Closed-loop Turner-expert rollout with ONE pairwise pass per step:
+        the pass at x_{t+1} that gives step t's observation also gives the
+        expert sums that drive step t+1's action.
+
+        Returns ``(final_state, traj)``; ``traj`` maps ``u`` (the expert
+        action taken at step t), ``values``, ``network`` and ``reward`` to
+        ``[B, n_steps, ...]`` tensors.  ``generator`` is accepted for
+        variants with stochastic dynamics; these envs do not use it.
+        """
+        if centralized is None:
+            centralized = params.centralized
+        x = state.x
+        _, _, s_gx, s_gy, s_dvx, s_dvy = self._fused_pass(x, params, centralized)
+        traj: Dict[str, torch.Tensor] = {}
+        for t in range(n_steps):
+            controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
+            u = self._rollout_action(controls, params)
+            x = self._rollout_integrate(x, u, params, generator)
+            values, network, s_gx, s_gy, s_dvx, s_dvy = self._fused_pass(
+                x, params, centralized
+            )
+            step = {"u": u, "values": values, "network": network,
+                    "reward": _instant_cost(x)}
+            if not traj:  # preallocate: the stored network dominates memory
+                traj = {k: v.new_empty((v.shape[0], n_steps) + v.shape[1:])
+                        for k, v in step.items()}
+            for k, v in step.items():
+                traj[k][:, t] = v
+        final = dataclasses.replace(state, x=x, time=state.time + n_steps)
+        return final, traj
+
+    def _rollout_action(self, controls, params: FlockingParams):
+        """Raw expert sums -> action (reference flocking_relative.py:208-211)."""
+        return controls.clamp(-10.0, 10.0) / params.action_scalar
+
+    def _rollout_integrate(self, x, u, params: FlockingParams, generator):
+        return _integrate(x, u * self._action_scale(params), params.dt)
+
+    def get_stats(self, state: FlockingState) -> Dict[str, torch.Tensor]:
+        """vel_diffs / min_dists, each ``[B, N]`` (reference
+        flocking_relative.py:136-143)."""
+        v = state.x[..., 2:4]
+        vel_diffs = torch.sqrt(((v - v.mean(dim=-2, keepdim=True)) ** 2).sum(dim=-1))
+        r2 = _pairwise_channels(state.x)[4]
+        return {"vel_diffs": vel_diffs, "min_dists": torch.sqrt(r2).amin(dim=-2)}
+
+    # ------------------------------------------------------------ spaces
+
+    def observation_space(self, params: FlockingParams):
+        return Box(-math.inf, math.inf, (params.n_agents, 6))
+
+    def action_space(self, params: FlockingParams):
+        return Box(-params.max_accel, params.max_accel, (params.n_agents, 2))
+
+
+class LargeFlockingEnv(FlockingRelativeEnv):
+    """Large-swarm variant (N >~ 1k): every pairwise reduction runs on K1.
+
+    Same dynamics, reward and expert as :class:`FlockingRelativeEnv`; the
+    observation is ``(state_values [B,N,6], degree [B,N])`` instead of the
+    dense ``[B,N,N]`` network.
+    """
+
+    def default_params(self) -> FlockingParams:
+        return FlockingParams(n_agents=4096, max_steps=1000)
+
+    def _obs(self, state: FlockingState, params: FlockingParams):
+        return flocking_features_large(state.x, params.comm_radius, params.comm_radius2)
+
+    def controller(self, state, params, centralized=None):
+        if centralized is None:
+            centralized = params.centralized
+        return turner_controller_large(
+            state.x, params.comm_radius, params.comm_radius2,
+            params.action_scalar, centralized=centralized,
+        )
+
+    def _sums(self, x, params, channels: str = "core"):
+        if channels == "core":
+            return flocking_sums(x, params.comm_radius, params.comm_radius2)
+        # the decentralized expert's masked gradient sums (10/11) are in the
+        # "full" set
+        return flocking_sums_block(
+            x, x, 0, 0, params.comm_radius, params.comm_radius2, channels="full"
+        )
+
+    def _unpack_sums(self, s, x, centralized):
+        """``(values, network, gx, gy, dvx, dvy)`` from one 16-channel sums
+        tensor: the SINGLE owner of the channel layout.
+
+        0-5 obs features, 8 degree; 6/7 gradient sums (centralized expert) or
+        10/11 adjacency-masked gradient sums (decentralized, reference
+        flocking_relative.py:201-207).  Centralized velocity-difference sums
+        take the closed form; decentralized ones ARE channels 0/3.
+        """
+        values, network = s[..., 0:6], s[..., 8]
+        if centralized:
+            n = x.shape[-2]
+            gx, gy = s[..., 6], s[..., 7]
+            dvx = n * x[..., 2] - x[..., 2].sum(dim=-1, keepdim=True)
+            dvy = n * x[..., 3] - x[..., 3].sum(dim=-1, keepdim=True)
+        else:
+            gx, gy = s[..., 10], s[..., 11]
+            dvx, dvy = s[..., 0], s[..., 3]
+        return values, network, gx, gy, dvx, dvy
+
+    def _fused_pass(self, x, params, centralized):
+        s = self._sums(x, params, channels="core" if centralized else "full")
+        return self._unpack_sums(s, x, centralized)

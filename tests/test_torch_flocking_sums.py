@@ -1,0 +1,145 @@
+"""K1 (the flocking pairwise channel sums) in the PyTorch port against the
+JAX package's Pallas kernel, run in interpret mode on the CPU.
+
+Tolerances: the degree (channel 8) exactly; channel 9 (min r^2) within
+1 ulp (XLA may contract dx*dx + dy*dy into an FMA); every other channel
+max |port - jax| / (1 + |jax|) < 1e-4, the measure of
+tests/test_pallas_kernels.py (the 1/r^4 sums are large and the summation
+orders differ).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from gym_flock_tpu.ops.pallas_flocking import flocking_sums as jax_flocking_sums
+from gym_flock_tpu.ops.pallas_flocking import flocking_sums_block as jax_flocking_sums_block
+from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+torch.set_num_threads(2)
+
+CR = 0.9
+CR2 = CR * CR
+SUM_TOL = 1e-4
+
+
+def _swarms(b, n, seed):
+    return np.random.RandomState(seed).randn(b, n, 4).astype(np.float32) * 2
+
+
+def _sum_channels(channels):
+    return list(range(8)) + ([10, 11] if channels == "full" else [])
+
+
+def _assert_k1_close(got, want, channels):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got[..., 8], want[..., 8])
+    sums = _sum_channels(channels)
+    rel = np.max(np.abs(got[..., sums] - want[..., sums]) / (1.0 + np.abs(want[..., sums])))
+    assert rel < SUM_TOL, rel
+    if channels == "full":
+        np.testing.assert_array_max_ulp(got[..., 9], want[..., 9], maxulp=1)
+    n_used = 12 if channels == "full" else 9
+    assert not np.any(got[..., n_used:])
+
+
+@pytest.mark.parametrize("n", [64, 137, 200])
+def test_core_matches_pallas(n):
+    x = _swarms(3, n, seed=n)
+    got = k1.flocking_sums(torch.from_numpy(x), CR, CR2)
+    want = jax_flocking_sums(jnp.asarray(x), CR, CR2, interpret=True)
+    _assert_k1_close(got.numpy(), want, "core")
+
+
+@pytest.mark.parametrize("n", [64, 137, 200])
+@pytest.mark.parametrize("case", ["symmetric", "cross"])
+def test_full_matches_pallas_block(n, case):
+    x = _swarms(3, n, seed=1000 + n)
+    if case == "symmetric":
+        xr, xc, ro, co = x, x, 0, 0
+    else:
+        # rows: agents [0, 2n/3); columns: agents [n/3, n) -- the ids in
+        # [n/3, 2n/3) appear on both sides and their self pairs must drop
+        lo, hi = n // 3, (2 * n) // 3
+        xr, xc, ro, co = x[:, :hi], x[:, lo:], 0, lo
+    got = k1.flocking_sums_block(
+        torch.from_numpy(np.ascontiguousarray(xr)), torch.from_numpy(np.ascontiguousarray(xc)),
+        ro, co, CR, CR2, channels="full",
+    )
+    want = jax_flocking_sums_block(
+        jnp.asarray(xr), jnp.asarray(xc), ro, co, CR, CR2, interpret=True, channels="full"
+    )
+    _assert_k1_close(got.numpy(), want, "full")
+
+
+def test_column_tiles_combine_to_whole_swarm():
+    """Rows against column blocks with global offsets, combined by + (and
+    min for channel 9), give the whole-swarm result."""
+    x = torch.from_numpy(_swarms(2, 150, seed=7))
+    whole = k1.flocking_sums_block(x, x, 0, 0, CR, CR2, channels="full")
+    rows = x[:, 40:110].contiguous()
+    parts = [
+        k1.flocking_sums_block(rows, x[:, a:b].contiguous(), 40, a, CR, CR2, channels="full")
+        for a, b in [(0, 50), (50, 100), (100, 150)]
+    ]
+    combined = sum(parts)
+    combined[..., 9] = torch.stack([p[..., 9] for p in parts]).amin(dim=0)
+    _assert_k1_close(combined.numpy(), whole[:, 40:110].numpy(), "full")
+
+
+def test_row_without_other_agents_has_infinite_min():
+    """One agent alone: no pair, zero sums, channel 9 = +inf (the Pallas
+    kernel reports its far-away padding distance there instead)."""
+    x = torch.from_numpy(_swarms(2, 1, seed=3))
+    s = k1.flocking_sums_block(x, x, 0, 0, CR, CR2, channels="full")
+    assert torch.isinf(s[..., 9]).all()
+    assert not s[..., :9].any() and not s[..., 10:].any()
+
+
+def _bad_inputs():
+    x = torch.from_numpy(_swarms(2, 16, seed=5))
+    return {
+        "float64": (x.double(), x.double(), "full"),
+        "non_contiguous": (x.transpose(0, 1), x.transpose(0, 1), "full"),
+        "unbatched": (x[0], x[0], "full"),
+        "three_columns": (x[..., :3].contiguous(), x[..., :3].contiguous(), "full"),
+        "batch_mismatch": (x, x[:1], "full"),
+        "channels": (x, x, "expert"),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_bad_inputs()))
+def test_wrapper_rejects_bad_inputs(name):
+    xr, xc, channels = _bad_inputs()[name]
+    with pytest.raises((TypeError, ValueError)):
+        k1.flocking_sums_block(xr, xc, 0, 0, CR, CR2, channels=channels)
+
+
+def test_wrapper_raises_on_a_device_other_than_cpu_or_cuda():
+    x = torch.empty(2, 16, 4, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        k1.flocking_sums_block(x, x, 0, 0, CR, CR2)
+
+
+def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
+    x = torch.from_numpy(_swarms(2, 32, seed=6))
+    before = k1.launches
+    got = k1.flocking_sums(x, CR, CR2)
+    assert k1.launches == before
+    want = k1.flocking_sums_block_reference(x, x, 0, 0, CR, CR2, "core")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs an NVIDIA GPU")
+@pytest.mark.parametrize("b,n", [(3, 1000), (64, 100)])
+def test_kernel_matches_plain_on_the_card(b, n):
+    for channels in ("core", "full"):
+        x = torch.from_numpy(_swarms(b, n, seed=n)).cuda()
+        before = k1.launches
+        got = k1.flocking_sums_block(x, x, 0, 0, CR, CR2, channels=channels)
+        torch.cuda.synchronize()
+        assert k1.launches == before + 1
+        want = k1.flocking_sums_block_reference(x, x, 0, 0, CR, CR2, channels)
+        _assert_k1_close(got.cpu().numpy(), want.cpu().numpy(), channels)
