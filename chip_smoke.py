@@ -25,6 +25,19 @@ Phases, each printing one line:
    against the plain functions on the same states.
 5. main path, ``FlockingRelative-v0`` (N=100): ``batch_expert_rollout`` with
    B=8192 and 8 steps; the reset's acceptance test must have run on K1.
+6. banks and K5 (``rowmin``) against its plain PyTorch version on the card:
+   ``make("ExploreFullEnv-v0", device="cuda")`` on the real ARL facility map
+   (T >= 4096 is asserted: no procedural fallback) and ``Coverage-v0``;
+   then K5 on the real operand at B=512, R=100 (random ``blocked`` at
+   density 0.5), on the Coverage-v0 bank at B=8192, R=6, G=8, and on a ragged
+   B=3, R=33, T=300, G=2 case with one fully blocked env.  Equal bit for bit
+   (``torch.equal``).  Kernel and plain times at the first two shapes.
+7. main path, ``ExploreFullEnv-v0`` (R=100, real map): ``batch_rollout``
+   with B=512, 8 steps and the greedy expert.  K5 must have launched exactly
+   once per step; the first step's actions must equal those of the plain
+   argmin controller on the same state with the same random draws; the
+   rewards must be finite with a positive total.
+8. main path, ``Coverage-v0`` (R=6, G=8): the same with B=8192, 16 steps.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -42,6 +55,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 SUM_TOL = 1e-4  # max |k - p| / (1 + |p|) on the summed channels
+K5_CASES = ("ExploreFull B=512 R=100", "Coverage B=8192 R=6 G=8", "ragged B=3 R=33 T=300 G=2")
 U_ATOL = 1e-4
 REPS = 7
 
@@ -261,6 +275,117 @@ def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     }
 
 
+def _k5_inputs(bank, n_envs: int, n_robots: int, gen):
+    """Random rows of a bank's K5 operand (robots on real nodes of random
+    graphs) and random ``blocked`` at density 0.5."""
+    import torch
+
+    dev = gen.device
+    g_count, t = bank["target_mask"].shape
+    g = torch.randint(0, g_count, (n_envs, 1), generator=gen, device=dev)
+    n_t = bank["n_targets"].long()[g]
+    cur = (torch.rand(n_envs, n_robots, generator=gen, device=dev) * n_t).long()
+    rowidx = (g * t + cur).to(torch.int32)
+    blocked = torch.rand(n_envs, t, generator=gen, device=dev) < 0.5
+    return rowidx, blocked, bank["cost_rows_pad"]
+
+
+def phase_rowmin_check(device: str, banks) -> dict:
+    """Phase 6: K5 against its plain version; returns errors and timings."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import rowmin as k5
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = [_k5_inputs(banks[0], 512, 100, gen), _k5_inputs(banks[1], 8192, 6, gen)]
+    # ragged: costs 0..19 with 10% unreachable, env 0 fully blocked
+    mm = torch.randint(0, 20, (2, 300, 300), generator=gen, device=device).float()
+    mm[torch.rand(2, 300, 300, generator=gen, device=device) < 0.1] = 1024.0
+    rowidx = torch.randint(0, 600, (3, 33), generator=gen, device=device, dtype=torch.int32)
+    blocked = torch.rand(3, 300, generator=gen, device=device) < 0.6
+    blocked[0] = True
+    cases.append((rowidx, blocked, k5.pad_cost_rows(mm)))
+    results = []
+    for name, args in zip(K5_CASES, cases):
+        got = k5.packed_greedy_min(*args)
+        want = k5.packed_greedy_min_reference(*args)
+        _sync()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"K5 differs from plain in {bad} entries ({name})")
+        results.append({"case": name, "B": args[0].shape[0], "R": args[0].shape[1],
+                        "T": args[1].shape[1], "Tp": args[2].shape[1],
+                        "max_abs_err": float((got - want).abs().max())})
+    # got is the ragged case's: its env 0 packs 1024 at index 0 everywhere
+    if not bool((got[0] == 1024 * 8192).all()):
+        raise AssertionError("the fully blocked env does not decode as unreachable")
+    for res, args in zip(results[:2], cases[:2]):
+        res["ms"] = time_ms(lambda: k5.packed_greedy_min(*args))
+        res["plain_ms"] = time_ms(lambda: k5.packed_greedy_min_reference(*args))
+        # bytes the kernel must read: the gathered cost rows and the mask
+        b, r = args[0].shape
+        res["GB_per_s"] = (b * r * args[2].shape[1] * 2 + args[1].numel()) / (res["ms"] * 1e6)
+    return {"cases": results, "max_abs_err": max(r["max_abs_err"] for r in results)}
+
+
+def phase_coverage(device: str, env, params, n_envs: int, n_steps: int) -> dict:
+    """Phases 7-8: a coverage env's greedy-expert rollout through K5."""
+    import dataclasses
+
+    import torch
+
+    from gym_flock_tpu_torch.ops import rowmin as k5
+    from gym_flock_tpu_torch.parallel.rollout import batch_rollout, rollout
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    gen_state = gen.get_state()
+    _sync()
+    k5.launches = 0
+    env.conflict_rounds = 0
+    t0 = time.perf_counter()
+    final, traj = batch_rollout(env, params, gen, n_envs, n_steps, policy="expert",
+                                keep_obs=False)
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches, rounds = k5.launches, env.conflict_rounds
+    if launches != n_steps:
+        raise AssertionError(f"K5 launches {launches} != {n_steps} steps")
+    reward = traj["reward"]
+    if tuple(reward.shape) != (n_envs, n_steps) or not torch.isfinite(reward).all():
+        raise AssertionError(f"rewards of shape {tuple(reward.shape)} or not finite")
+    total = float(reward.sum())
+    if not total > 0:
+        raise AssertionError(f"total reward {total} is not positive")
+
+    # the same start state and first draws again, then the first action on
+    # the plain argmin controller (the bank without K5's operand)
+    replay = torch.Generator(device=device)
+    replay.set_state(gen_state)
+    state0, _ = env.reset_env(replay, params, n_envs)
+    rand_u = torch.randint(0, params.n_actions, (n_envs, params.n_robots), generator=replay,
+                           device=device, dtype=torch.int32)
+    plain = dataclasses.replace(
+        params, bank={k: v for k, v in params.bank.items() if k != "cost_rows_pad"})
+    u_plain = env.controller(state0, plain, rand_u=rand_u)
+    if not torch.equal(traj["action"][:, 0], u_plain):
+        bad = int((traj["action"][:, 0] != u_plain).sum())
+        raise AssertionError(f"first-step actions differ from the plain controller in {bad}")
+
+    # the rollout alone, without the reset
+    _sync()
+    t1 = time.perf_counter()
+    rollout(env, params, gen, n_steps, policy="expert", init_state=final, init_obs=None,
+            keep_obs=False)
+    _sync()
+    roll_s = time.perf_counter() - t1
+    return {
+        "launches": launches, "conflict_rounds_per_step": rounds / n_steps,
+        "total_reward": total, "seconds": seconds, "rollout_seconds": roll_s,
+        "env_steps_per_s": n_envs * n_steps / seconds,
+        "rollout_env_steps_per_s": n_envs * n_steps / roll_s,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -307,7 +432,41 @@ def main() -> int:
     _sync()
     print("phase 5 FlockingRelative-v0 B=8192 N=100 8 steps: " + json.dumps(rel))
 
+    # 6. banks and K5 against its plain version
+    import gym_flock_tpu_torch as gft
+
+    t0 = time.perf_counter()
+    xenv, xparams = gft.make("ExploreFullEnv-v0", device=device, real_map=True)
+    _sync()
+    x_build_s = time.perf_counter() - t0
+    t_real = xparams.bank["target_mask"].shape[1]
+    if t_real < 4096:
+        raise AssertionError(f"ExploreFullEnv-v0 has T={t_real}: not the real map")
+    t0 = time.perf_counter()
+    cenv, cparams = gft.make("Coverage-v0", device=device)
+    _sync()
+    c_build_s = time.perf_counter() - t0
+    print(f"phase 6 banks: ExploreFullEnv-v0 T={t_real} R={xparams.n_robots} built in "
+          f"{x_build_s:.2f} s; Coverage-v0 G={cparams.bank['target_mask'].shape[0]} "
+          f"T={cparams.max_targets} built in {c_build_s:.2f} s")
+    k5r = phase_rowmin_check(device, (xparams.bank, cparams.bank))
+    _sync()
+    print("phase 6 K5 vs plain: " + json.dumps(k5r))
+
+    # 7. ExploreFullEnv-v0 main path
+    xf = phase_coverage(device, xenv, xparams, n_envs=512, n_steps=8)
+    xf["bank_build_seconds"] = x_build_s
+    _sync()
+    print("phase 7 ExploreFullEnv-v0 real map B=512 R=100 8 steps: " + json.dumps(xf))
+
+    # 8. Coverage-v0 main path
+    cv = phase_coverage(device, cenv, cparams, n_envs=8192, n_steps=16)
+    cv["bank_build_seconds"] = c_build_s
+    _sync()
+    print("phase 8 Coverage-v0 B=8192 R=6 16 steps: " + json.dumps(cv))
+
     big = k["timings"][0]
+    k5_big = k5r["cases"][0]
     print(json.dumps({"kernels": [{
         "name": "block_sums",
         "route": "cuda",
@@ -318,6 +477,16 @@ def main() -> int:
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "timings": k["timings"],
+    }, {
+        "name": "rowmin",
+        "route": "cuda",
+        "source": "gym_flock_tpu_torch/csrc/rowmin.cu",
+        "replaces": "gym_flock_tpu/ops/rowmin.py:72",
+        "launches": xf["launches"] + cv["launches"],
+        "max_abs_err": k5r["max_abs_err"],
+        "ms": k5_big["ms"],
+        "plain_ms": k5_big["plain_ms"],
+        "timings": k5r["cases"][:2],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

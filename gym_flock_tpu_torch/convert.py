@@ -2,7 +2,8 @@
 
 These are the "weights" of an env engine: the tests start both packages
 from identical parameters and states through them.  Nothing here imports
-JAX; ``params_from_jax`` reads the fields of any object that has them.
+JAX; the functions read the fields of any object that has them, and arrays
+through ``numpy.asarray``.
 """
 from __future__ import annotations
 
@@ -11,13 +12,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from gym_flock_tpu_torch.envs.coverage import CoverageParams, CoverageState, prepare_bank
 from gym_flock_tpu_torch.envs.flocking import FlockingParams, FlockingState, _state_from_x
 
-__all__ = ["params_from_jax", "state_from_numpy"]
+__all__ = [
+    "params_from_jax", "state_from_numpy", "coverage_params_from_jax",
+    "coverage_state_from_numpy",
+]
 
 
 def _plain(value):
-    if isinstance(value, (bool, int, float)):
+    if value is None or isinstance(value, (bool, int, float)):
         return value
     return float(np.asarray(value))
 
@@ -40,3 +45,45 @@ def state_from_numpy(x, params: FlockingParams, device) -> FlockingState:
         raise ValueError(f"x must be [B, {params.n_agents}, 4], got {x.shape}")
     t = torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=device)
     return _state_from_x(t)
+
+
+# the JAX package's one-hot / matrix-product operands, which the port's
+# gather formulations do not read
+_JAX_ONLY_KEYS = ("hide_send_onehot", "hide_recv_onehot", "hide_adj", "cost_rows_pad")
+
+
+def _tensor(value, device) -> torch.Tensor:
+    a = np.asarray(value)
+    if a.dtype.name == "bfloat16":  # numpy's bf16 is not a torch dtype
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)  # a copy: jax arrays are read-only
+
+
+def coverage_params_from_jax(jax_params, device="cpu") -> CoverageParams:
+    """The port's :class:`CoverageParams` from a ``gym_flock_tpu``
+    ``CoverageParams``: its fields and bank arrays, then the port's own
+    operands (``envs.coverage.prepare_bank``) in place of the JAX package's
+    one-hot ones."""
+    fields = {
+        f.name: _plain(getattr(jax_params, f.name))
+        for f in dataclasses.fields(CoverageParams) if f.name != "bank"
+    }
+    bank = {
+        k: _tensor(v, device) for k, v in jax_params.bank.items()
+        if k not in _JAX_ONLY_KEYS and not k.startswith("disc_reach_r")
+    }
+    bank = prepare_bank(bank, fields["hide_nodes"], fields["discover_radius"])
+    return CoverageParams(bank=bank, **fields)
+
+
+def coverage_state_from_numpy(state, device="cpu") -> CoverageState:
+    """A batched :class:`CoverageState` from an object holding the fields of
+    one, each stacked over the batch (e.g. a ``jax.vmap``-ed reset's
+    state)."""
+    dtypes = {"time": torch.int32, "graph": torch.int32, "robot_loc": torch.int32,
+              "visited": torch.float32, "discovered": torch.float32,
+              "episode_reward": torch.float32, "last_loc": torch.int32}
+    return CoverageState(**{
+        name: _tensor(getattr(state, name), device).to(dtype)
+        for name, dtype in dtypes.items()
+    })

@@ -5,7 +5,7 @@ whose tensors carry the batch of environments as their leading dimension:
 
     state, obs                = env.reset_env(generator, params, n_envs)
     state, obs, r, done, info = env.step_env(generator, state, action, params)
-    action                    = env.controller(state, params)
+    action                    = env.controller(state, params, generator)
 
 ``reward`` is ``[B]`` and ``done`` a ``[B]`` bool tensor.  Randomness comes
 from an explicit ``torch.Generator``; every tensor an env creates lies on
@@ -53,8 +53,13 @@ class Env(Generic[TParams, TState]):
     ) -> Tuple[TState, Obs, torch.Tensor, torch.Tensor, Dict[str, Any]]:
         raise NotImplementedError
 
-    def controller(self, state: TState, params: TParams) -> Action:
-        """Expert action (reference ``env.controller()``)."""
+    def controller(
+        self, state: TState, params: TParams,
+        generator: torch.Generator | None = None,
+    ) -> Action:
+        """Expert action (reference ``env.controller()``).  ``generator``
+        feeds the random choices of experts that make any; deterministic
+        experts ignore it."""
         raise NotImplementedError
 
     def observation_space(self, params: TParams) -> Space:
@@ -69,13 +74,15 @@ class Env(Generic[TParams, TState]):
 
 
 def _select(done: torch.Tensor, a, b):
-    """``b`` where ``done`` else ``a``, over tensors, tuples and dataclasses
-    whose tensors lead with the batch dimension."""
+    """``b`` where ``done`` else ``a``, over tensors, tuples, dicts and
+    dataclasses whose tensors lead with the batch dimension."""
     if isinstance(a, torch.Tensor):
         mask = done.reshape(done.shape + (1,) * (a.dim() - 1))
         return torch.where(mask, b, a)
     if isinstance(a, tuple):
         return tuple(_select(done, x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return {k: _select(done, v, b[k]) for k, v in a.items()}
     if dataclasses.is_dataclass(a):
         return dataclasses.replace(a, **{
             f.name: _select(done, getattr(a, f.name), getattr(b, f.name))

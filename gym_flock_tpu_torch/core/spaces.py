@@ -1,5 +1,6 @@
 """Observation/action space descriptions (counterpart of
-``gym_flock_tpu/core/spaces.py``; only ``Space`` and ``Box`` so far).
+``gym_flock_tpu/core/spaces.py``: ``Box``, ``Discrete``, ``MultiDiscrete``
+and ``DictSpace``).
 
 Spaces are descriptions: shape, dtype and bounds, plus ``sample`` from an
 explicit ``torch.Generator`` and ``contains``.
@@ -8,11 +9,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Mapping, Sequence, Tuple
 
 import torch
 
-__all__ = ["Space", "Box"]
+__all__ = ["Space", "Box", "Discrete", "MultiDiscrete", "DictSpace"]
 
 
 class Space:
@@ -53,3 +54,74 @@ class Box(Space):
         return tuple(x.shape) == tuple(self.shape) and bool(
             torch.all(x >= self.low) and torch.all(x <= self.high)
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Discrete(Space):
+    """{0, 1, ..., n-1}."""
+
+    n: int
+    dtype: torch.dtype = torch.int32
+
+    @property
+    def shape(self) -> Tuple[int, ...]:  # type: ignore[override]
+        return ()
+
+    def sample(self, generator: torch.Generator, batch: Tuple[int, ...] = ()):
+        return torch.randint(
+            0, self.n, tuple(batch), generator=generator, device=generator.device,
+            dtype=self.dtype,
+        )
+
+    def contains(self, x) -> bool:
+        return 0 <= int(x) < self.n
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiDiscrete(Space):
+    """Cartesian product of discrete spaces with per-dim cardinality ``nvec``
+    (``MultiDiscrete([n_actions] * n_robots)`` of the coverage envs)."""
+
+    nvec: Tuple[int, ...]
+    dtype: torch.dtype = torch.int32
+
+    @property
+    def shape(self) -> Tuple[int, ...]:  # type: ignore[override]
+        return (len(self.nvec),)
+
+    def sample(self, generator: torch.Generator, batch: Tuple[int, ...] = ()):
+        """``[*batch, len(nvec)]``, entry i uniform over ``[0, nvec[i])``."""
+        dev = generator.device
+        u = torch.rand(tuple(batch) + self.shape, generator=generator, device=dev,
+                       dtype=torch.float64)
+        nvec = torch.tensor(self.nvec, dtype=torch.float64, device=dev)
+        return (u * nvec).floor().to(self.dtype)
+
+    def contains(self, x) -> bool:
+        x = torch.as_tensor(x)
+        nvec = torch.tensor(self.nvec)
+        return tuple(x.shape) == self.shape and bool(
+            torch.all(x >= 0) and torch.all(x < nvec)
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DictSpace(Space):
+    """Ordered mapping of named sub-spaces (gym.spaces.Dict analog)."""
+
+    spaces: Mapping[str, Space]
+
+    @property
+    def shape(self):  # type: ignore[override]
+        return {k: s.shape for k, s in self.spaces.items()}
+
+    def sample(self, generator: torch.Generator, batch: Tuple[int, ...] = ()):
+        return {k: s.sample(generator, batch) for k, s in self.spaces.items()}
+
+    def contains(self, x) -> bool:
+        return isinstance(x, Mapping) and all(
+            k in x and s.contains(x[k]) for k, s in self.spaces.items()
+        )
+
+    def keys(self) -> Sequence[str]:
+        return list(self.spaces.keys())

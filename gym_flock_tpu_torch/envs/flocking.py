@@ -341,7 +341,9 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         done = new_state.time >= params.max_steps
         return new_state, obs, reward, done, {}
 
-    def controller(self, state: FlockingState, params: FlockingParams, centralized=None):
+    def controller(self, state: FlockingState, params: FlockingParams, generator=None,
+                   centralized=None):
+        """The Turner expert; deterministic, so ``generator`` is not used."""
         return turner_controller(state.x, params, centralized)
 
     # ---------------------------------------------------- fused expert rollout
@@ -427,7 +429,7 @@ class LargeFlockingEnv(FlockingRelativeEnv):
     def _obs(self, state: FlockingState, params: FlockingParams):
         return flocking_features_large(state.x, params.comm_radius, params.comm_radius2)
 
-    def controller(self, state, params, centralized=None):
+    def controller(self, state, params, generator=None, centralized=None):
         if centralized is None:
             centralized = params.centralized
         return turner_controller_large(

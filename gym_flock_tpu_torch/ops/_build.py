@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``gym_flock_tpu_torch/csrc/*.cu`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library goes into
+``nvcc`` compiles each ``gym_flock_tpu_torch/csrc/*.cu`` to an object, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, loaded with ``ctypes``.  The library goes into
 ``build/gym_flock_tpu_torch/`` beside the package, under a name that carries
 a hash of the sources and the flags, so that a stale library is never
 loaded.  The build happens at first use, in the process that needs it.
@@ -16,19 +17,20 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "library_path"]
+__all__ = ["NVCC_FLAGS", "LINK_FLAGS", "build", "load", "library_path"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "gym_flock_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # IEEE division for 1/r2; FMA stays allowed, r2 is formed with
     # __fmul_rn/__fadd_rn in the source.  Never --use_fast_math.
     "-prec-div=true",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
 _lib = None
 build_log = ""  # compiler output of the build that produced the library
@@ -43,7 +45,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libgft_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -69,23 +71,36 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    # compile into a private directory and link to a private name, then
+    # rename: concurrent builders never load a half-written library
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    tmp = work / out.name
     try:
+        procs = []
+        for src in cu:
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _, p in procs:
+            text = p.communicate()[0]
+            logs.append(f"== {src.name}\n{text}")
+            if p.returncode != 0:
+                failed.append(f"{src.name} ({p.returncode})")
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "".join(logs))
         r = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(obj) for _, obj, _ in procs)],
             capture_output=True, text=True,
         )
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
-        build_log = r.stdout + r.stderr
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+        build_log = "".join(logs) + r.stdout + r.stderr
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -98,5 +113,7 @@ def load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gft_block_sums.argtypes = [p, p, p, i, i, i, i, i, f, f, i, p]
         lib.gft_block_sums.restype = ctypes.c_int
+        lib.gft_rowmin.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.gft_rowmin.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -9,7 +9,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["pairwise_sq_dists", "radius_adjacency", "mean_pool_normalize"]
+__all__ = [
+    "pairwise_sq_dists", "radius_adjacency", "mean_pool_normalize", "nodes_within_radius",
+]
 
 
 def pairwise_sq_dists(
@@ -42,3 +44,17 @@ def mean_pool_normalize(adj: torch.Tensor) -> torch.Tensor:
         n_neighbors == 0, torch.ones_like(n_neighbors), n_neighbors
     )
     return adj * (1.0 / n_neighbors)
+
+
+def nodes_within_radius(rad, pos1: torch.Tensor, pos2: torch.Tensor) -> torch.Tensor:
+    """``[..., M]`` mask of the ``pos2 [..., M, 2]`` entries with at least one
+    ``pos1 [..., N, 2]`` entry within ``rad`` (reference utils.py:27-39).
+
+    The reference's quirk is kept: a node at exactly zero distance adds 0
+    to the sum of the kept distances, so it does not by itself mark a node
+    as seen (the reference zeroes distances > rad, sums, and tests > 0).
+    """
+    diff = pos1[..., :, None, :] - pos2[..., None, :, :]
+    r = torch.sqrt(diff[..., 0] ** 2 + diff[..., 1] ** 2)
+    r = torch.where(r > rad, 0.0, r)
+    return r.sum(dim=-2) > 0

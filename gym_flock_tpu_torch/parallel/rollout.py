@@ -19,7 +19,9 @@ __all__ = ["rollout", "batch_rollout", "batch_expert_rollout"]
 def _resolve_policy(env: Env, policy):
     """policy: 'expert' | 'random' | callable(generator, state, obs, params) -> action."""
     if policy == "expert":
-        return lambda generator, state, obs, params: env.controller(state, params)
+        return lambda generator, state, obs, params: env.controller(
+            state, params, generator=generator
+        )
     if policy == "random":
 
         def random_policy(generator, state, obs, params):
@@ -49,7 +51,8 @@ def rollout(
     Starts from ``(init_state, init_obs)`` when given, else from a reset of
     ``n_envs`` envs.  ``traj`` maps ``obs`` (unless ``keep_obs=False``),
     ``action``, ``reward`` and ``done`` to per-step values stacked on
-    dimension 1.
+    dimension 1 (tuple and dict observations leaf by leaf).  The expert
+    policy draws its random choices from ``generator``.
     """
     policy_fn = _resolve_policy(env, policy)
     if init_state is None:
@@ -75,6 +78,8 @@ def rollout(
     def stack(seq):
         if isinstance(seq[0], tuple):
             return tuple(stack(list(parts)) for parts in zip(*seq))
+        if isinstance(seq[0], dict):
+            return {k: stack([s[k] for s in seq]) for k in seq[0]}
         return torch.stack(seq, dim=1)
 
     traj = {k: stack(v) for k, v in steps.items() if v}

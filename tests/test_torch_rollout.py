@@ -1,5 +1,7 @@
 """The port's rollout loops against ``jax.vmap`` of the JAX package's, from
-identical states (B=4 swarms of N=48 agents, 5 steps).
+identical states (B=4 swarms of N=48 agents, 5 steps), and the protocol
+around them: autoreset over dict observations, the generator handed to the
+expert.
 
 Tolerances: the expert action ``u`` and the reward atol 1e-4; observation
 feature sums max |port - jax| / (1 + |jax|) < 1e-4; the mean-pooled network
@@ -15,6 +17,7 @@ import gym_flock_tpu as gft_jax
 import gym_flock_tpu_torch as gft
 from gym_flock_tpu.parallel.rollout import rollout as jax_rollout
 from gym_flock_tpu_torch import convert
+from gym_flock_tpu_torch.core.env import Env, _select, step_autoreset
 from gym_flock_tpu_torch.parallel import rollout as tro
 from tests.test_torch_flocking_env import NETWORK_ATOL, SUM_TOL, _rel, grid_swarms
 
@@ -110,3 +113,69 @@ def test_batch_rollout_random_policy_autoresets():
     assert traj["done"].tolist() == [[False, True, False, True, False]] * 3
     assert traj["obs"][0].shape == (3, 5, N, 6) and traj["obs"][1].shape == (3, 5, N, N)
     assert state.time.tolist() == [1, 1, 1]
+
+
+def test_select_over_dict_observations():
+    done = torch.tensor([True, False])
+    a = {"x": torch.zeros(2, 3), "y": (torch.zeros(2), torch.zeros(2, 1, dtype=torch.int32))}
+    b = {"x": torch.ones(2, 3), "y": (torch.ones(2), torch.ones(2, 1, dtype=torch.int32))}
+    out = _select(done, a, b)
+    assert out["x"].tolist() == [[1.0] * 3, [0.0] * 3]
+    assert out["y"][0].tolist() == [1.0, 0.0] and out["y"][1].tolist() == [[1], [0]]
+
+
+def test_step_autoreset_with_dict_observations_where_one_env_is_done():
+    """Coverage observations are dicts; env 0 is one step from its episode
+    length, so it alone is done and replaced by a fresh reset."""
+    tenv, tp = gft.make("Coverage-v0", n_graphs=2, episode_length=3, max_steps=3)
+    gen = torch.Generator().manual_seed(1)
+    state, _ = tenv.reset_env(gen, tp, 3)  # time 1
+    state = type(state)(**{**state.__dict__, "time": torch.tensor([2, 1, 1], dtype=torch.int32)})
+    u = tenv.controller(state, tp, gen)
+    new_state, obs, reward, done, info = step_autoreset(tenv, gen, state, u, tp)
+    assert done.tolist() == [True, False, False]
+    assert new_state.time.tolist() == [1, 2, 2]
+    assert obs["step"].flatten().tolist() == [0.0, 1.0, 1.0]
+    assert info["terminal_obs"]["step"].flatten().tolist() == [2.0, 1.0, 1.0]
+    assert torch.equal(obs["senders"][1:], info["terminal_obs"]["senders"][1:])
+    assert set(obs) == {"nodes", "edges", "senders", "receivers", "step"}
+
+
+class _SpyEnv(Env):
+    """Counts steps; its expert records the generator it is handed."""
+
+    def __init__(self):
+        self.seen = []
+
+    def reset_env(self, generator, params, n_envs):
+        from gym_flock_tpu_torch.core.env import EnvState
+
+        return EnvState(time=torch.zeros(n_envs, dtype=torch.int32)), torch.zeros(n_envs)
+
+    def step_env(self, generator, state, action, params):
+        state = type(state)(time=state.time + 1)
+        return state, state.time.float(), action, state.time >= 100, {}
+
+    def controller(self, state, params, generator=None):
+        self.seen.append(generator)
+        return torch.zeros(state.time.shape[0])
+
+
+def test_expert_policy_passes_the_generator():
+    """policy='expert' hands the rollout's generator to the controller, as
+    the JAX package hands it the per-step key (coverage's random fallback
+    needs it)."""
+    env = _SpyEnv()
+    gen = torch.Generator().manual_seed(0)
+    tro.batch_rollout(env, None, gen, n_envs=2, n_steps=3, policy="expert")
+    assert env.seen == [gen] * 3
+
+
+def test_expert_policy_string_drives_coverage():
+    """The counterpart of tests/test_coverage_rollout.py's key pass-through
+    test: 30 expert steps of Coverage-v0 make steady progress."""
+    tenv, tp = gft.make("Coverage-v0", n_graphs=1)
+    _, traj = tro.batch_rollout(tenv, tp, torch.Generator().manual_seed(4), 2, 30,
+                                policy="expert", keep_obs=False)
+    assert bool(torch.isfinite(traj["reward"]).all())
+    assert (traj["reward"].sum(dim=1) > 5).all()
