@@ -38,6 +38,30 @@ Phases, each printing one line:
    argmin controller on the same state with the same random draws; the
    rewards must be finite with a positive total.
 8. main path, ``Coverage-v0`` (R=6, G=8): the same with B=8192, 16 steps.
+9. K3 (``sparse_sums``) against its plain PyTorch version on the card, in
+   the "core", "expert" and "full" channel sets, on sorted operands at
+   (a) N=65,536, B=1 and (b) N=16,384, B=16, both in bench metric 4's state
+   (positions uniform over a square of side sqrt(N), velocities standard
+   normal, drawn with numpy from a fixed seed) with the Verlet table the
+   main path builds, and (c) a ragged table at N=1,024, B=3 (pad slots
+   first and past n_b).  K1's tolerances; channel 9 exactly 0 in
+   "expert".  At (b) the degree through ``flocking_sums_sparse`` must equal
+   dense K1's (exact pruning).  K1 "core" against its plain version at (a),
+   the shape of the overflow branch of phase 10's workload.  Kernel and
+   plain times at (a) and (b), and dense K1's time at (a).
+10. main path, ``FlockingSparse-v0`` at N=65,536, B=1:
+   ``batch_expert_rollout(..., init_state=...)`` for 32 steps from bench
+   metric 4's state, whose table must not overflow.  K3 must have launched
+   once per fused pass (33) and K1 never (this holds for the fixed seed:
+   other seeds overflow at a rebuild); the first step's action and
+   observation are checked against the plain pipeline on the same states.
+11. main path, ``FlockingSparse-v0`` at its default N=16,384 with B=4,
+   ``batch_expert_rollout`` from ``reset_env``, 8 steps.  The reset's draws
+   overflow the table, so every acceptance test and every pass launches
+   exactly one kernel, K3 or K1, and the K1 launches must equal the passes
+   that the port found overflowing.  On the reset's state, K1 in "core" and
+   "full" is held against its plain version, and the first step's action
+   and observation against the plain pipeline.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -46,6 +70,7 @@ non-zero before the last line; without a card it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -55,6 +80,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 SUM_TOL = 1e-4  # max |k - p| / (1 + |p|) on the summed channels
+SPARSE_STEPS = 32  # bench metric 4's rollout length
+# Phase 10's state.  The table's margin is thin: in 32-step rollouts from 48
+# seeds of this state on an H100, 26 overflowed k_max=16 at the start or at
+# a Verlet rebuild and then ran on dense K1 until the next rebuild.  This
+# seed was chosen because it stays on K3 throughout (13 slots at most at the
+# start, one rebuild); a change of summation order can move its rebuild
+# over k_max, which is a property of the workload, not a fault.
+SPARSE_SEED = 10
 K5_CASES = ("ExploreFull B=512 R=100", "Coverage B=8192 R=6 G=8", "ragged B=3 R=33 T=300 G=2")
 U_ATOL = 1e-4
 REPS = 7
@@ -85,22 +118,24 @@ def time_ms(fn) -> float:
 
 
 def sum_channels(channels: str):
-    return list(range(8)) + ([10, 11] if channels == "full" else [])
+    return list(range(8)) + ([10, 11] if channels != "core" else [])
 
 
 def compare_sums(got, want, channels: str) -> dict:
-    """Hold a K1 result against the plain one; raises on a breach and
+    """Hold a K1 or K3 result against the plain one; raises on a breach and
     returns the measured errors."""
     import torch
 
-    n_used = 12 if channels == "full" else 9
+    n_used = 9 if channels == "core" else 12
     if not (torch.isfinite(got[..., :9]).all() and torch.isfinite(want[..., :9]).all()):
-        raise AssertionError("non-finite K1 sums")
+        raise AssertionError("non-finite sums")
     if not torch.equal(got[..., 8], want[..., 8]):
         bad = int((got[..., 8] != want[..., 8]).sum())
         raise AssertionError(f"degree (channel 8) differs in {bad} rows")
     if not torch.equal(got[..., n_used:], torch.zeros_like(got[..., n_used:])):
         raise AssertionError("unused channels are not zero")
+    if channels == "expert" and bool(got[..., 9].any()):
+        raise AssertionError("channel 9 is not zero in the expert set")
     sums = sum_channels(channels)
     g, w = got[..., sums], want[..., sums]
     rel = float(((g - w).abs() / (1.0 + w.abs())).max())
@@ -272,6 +307,250 @@ def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
         "rollout_seconds": roll_s,
         "env_steps_per_s": n_envs * n_steps / seconds,
         "rollout_env_steps_per_s": n_envs * n_steps / roll_s,
+    }
+
+
+def bench_state(n_envs: int, n_agents: int, seed: int, device: str):
+    """Bench metric 4's state (``bench.py:bench_sparse_flocking``): positions
+    uniform over a square of side sqrt(N), about 1 agent per unit^2, and
+    standard normal velocities, drawn with numpy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = np.empty((n_envs, n_agents, 4), np.float32)
+    x[..., :2] = rng.uniform(0.0, math.sqrt(n_agents), (n_envs, n_agents, 2))
+    x[..., 2:] = rng.standard_normal((n_envs, n_agents, 2))
+    return torch.from_numpy(x).to(device)
+
+
+def phase_sparse_kernel_check(device: str, shapes) -> dict:
+    """Phase 9: K3 against its plain version at the two ``(B, N)`` of
+    ``shapes`` and a ragged case; returns errors and timings."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+
+    cr = 0.9
+    cr2 = cr * cr
+    cases, states = [], []
+    for b, n in shapes:
+        x = bench_state(b, n, SEED + b, device)
+        vs = sf.verlet_build(x, cr, cr)
+        if bool(vs.overflow.any()):
+            raise AssertionError(f"the B={b}, N={n} table overflows k_max")
+        cases.append((f"B={b},N={n}", sf.permute(x, vs.perm), vs.table))
+        states.append(x)
+    x = bench_state(3, 1024, SEED + 3, device)
+    xs = sf.permute(x, sf.hilbert_order(x, cr))
+    table, _ = sf.block_pair_table(xs, cr, 16)
+    ragged = torch.cat([table.flip(-1), torch.full_like(table[..., :3], -1)], dim=-1)
+    cases.append(("ragged B=3,N=1024", xs, ragged.contiguous()))
+    worst = {"rel": 0.0, "ulp9": 0, "abs": 0.0}
+    for name, xs, table in cases:
+        for channels in ("core", "expert", "full"):
+            got = sf.sparse_sums_sorted(xs, table, cr, cr2, channels)
+            want = sf.sparse_sums_sorted_reference(xs, table, cr, cr2, channels)
+            _sync()
+            err = compare_sums(got, want, channels)
+            worst = {k: max(worst[k], err[k]) for k in worst}
+
+    # exact pruning: the degree through the whole pipeline equals dense K1's
+    x_b = states[1]
+    overflows = sf.overflow_passes
+    deg_sparse = sf.flocking_sums_sparse(x_b, cr, cr2)[..., 8]
+    deg_dense = k1.flocking_sums(x_b, cr, cr2)[..., 8]
+    _sync()
+    if sf.overflow_passes != overflows:
+        raise AssertionError("the pruning check took the dense branch")
+    if not torch.equal(deg_sparse, deg_dense):
+        bad = int((deg_sparse != deg_dense).sum())
+        raise AssertionError(f"sparse degree differs from dense K1's in {bad} agents")
+
+    # K1 at (a)'s shape: the overflow branch of phase 10's workload
+    x_a = states[0]
+    k1_a = compare_sums(k1.flocking_sums(x_a, cr, cr2),
+                        k1.flocking_sums_block_reference(x_a, x_a, 0, 0, cr, cr2, "core"),
+                        "core")
+    _sync()
+
+    timings = []
+    for (name, xs, table), x in zip(cases[:2], states):
+        b, n, _ = xs.shape
+        pairs = int((table >= 0).sum()) * sf.BLOCK * sf.BLOCK
+        res = {"case": name, "B": b, "N": n, "channels": "core",
+               "listed_slots_per_row_block": float((table >= 0).sum(-1).float().mean()),
+               "max_slots": int((table >= 0).sum(-1).max()), "listed_pairs": pairs}
+        res["ms"] = time_ms(lambda: sf.sparse_sums_sorted(xs, table, cr, cr2, "core"))
+        res["plain_ms"] = time_ms(
+            lambda: sf.sparse_sums_sorted_reference(xs, table, cr, cr2, "core"))
+        res["gpairs_per_s"] = pairs / (res["ms"] * 1e6)
+        if b == 1:
+            res["dense_k1_ms"] = time_ms(lambda: k1.flocking_sums(x, cr, cr2))
+        timings.append(res)
+    return {"worst": worst, "cases": len(cases) * 3, "k1_dense_a": k1_a, "timings": timings}
+
+
+def plain_pass_sums(x, cr, cr2, skin):
+    """The "core" pass at ``x`` on the plain versions, as the sparse pipeline
+    decides it: the Verlet table at ``x``, then K3's plain version, or K1's
+    over every pair where the table overflows.  Returns ``(sums, dense)``."""
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+
+    vs = sf.verlet_build(x, cr, skin)
+    if bool(vs.overflow.any()):
+        return k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr2, "core"), True
+    xs = sf.permute(x, vs.perm)
+    return sf.unsort(sf.sparse_sums_sorted_reference(xs, vs.table, cr, cr2, "core"),
+                     vs.perm), False
+
+
+def check_sparse_first_step(env, params, x0, traj) -> dict:
+    """The first step's action and observation of a sparse rollout from
+    ``x0`` against the plain pipeline on the same states."""
+    import torch
+
+    from gym_flock_tpu_torch.envs.flocking import _integrate
+
+    cr, cr2, skin = params.comm_radius, params.comm_radius2, env._verlet_skin(params)
+    s0, dense0 = plain_pass_sums(x0, cr, cr2, skin)
+    _, _, gx, gy, dvx, dvy = env._unpack_sums(s0, x0, params.centralized)
+    u_plain = env._rollout_action(torch.stack((-gx - dvx, -dvy - gy), dim=-1), params)
+    u_err = float((traj["u"][:, 0] - u_plain).abs().max())
+    if not u_err <= U_ATOL:
+        raise AssertionError(f"first-step u differs from plain by {u_err:.3e}")
+    x1 = _integrate(x0, traj["u"][:, 0] * params.action_scalar, params.dt)
+    s1, dense1 = plain_pass_sums(x1, cr, cr2, skin)
+    if not torch.equal(traj["network"][:, 0], s1[..., 8]):
+        raise AssertionError("first-step degree differs from plain")
+    v_rel = float(((traj["values"][:, 0] - s1[..., 0:6]).abs()
+                   / (1.0 + s1[..., 0:6].abs())).max())
+    if not v_rel < SUM_TOL:
+        raise AssertionError(f"first-step values differ from plain: {v_rel:.3e}")
+    return {"u_err": u_err, "values_rel": v_rel, "plain_dense_passes": int(dense0) + int(dense1)}
+
+
+def phase_sparse_main(device: str, n_agents: int, n_steps: int) -> dict:
+    """Phase 10: FlockingSparse-v0's expert rollout from bench metric 4's
+    state, every pass on K3."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+    from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout
+
+    env, params = gft.make("FlockingSparse-v0", n_agents=n_agents)
+    cr = params.comm_radius
+    x0 = bench_state(1, n_agents, SPARSE_SEED, device)
+    skin = env._verlet_skin(params)
+    if bool(sf.verlet_build(x0, cr, skin).overflow.any()):
+        raise AssertionError(f"the start state's Verlet table overflows k_max (numpy seed "
+                             f"{SPARSE_SEED}: a property of the seed, see SPARSE_SEED)")
+    state = env.init_state(x0, params)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _sync()
+    k1.launches = sf.launches = sf.verlet_rebuilds = sf.overflow_passes = 0
+    t0 = time.perf_counter()
+    final, traj = batch_expert_rollout(env, params, gen, 1, n_steps, init_state=state)
+    _sync()
+    seconds = time.perf_counter() - t0
+    k3_launches, k1_launches, rebuilds = sf.launches, k1.launches, sf.verlet_rebuilds
+    overflowed = sf.overflow_passes
+    if k3_launches != n_steps + 1 or k1_launches != 0:
+        raise AssertionError(
+            f"K3 launches {k3_launches} (want {n_steps + 1}), K1 launches {k1_launches} "
+            f"(want 0), {overflowed} overflowing passes, {rebuilds} rebuilds: with numpy "
+            f"seed {SPARSE_SEED} the tables stay within k_max; overflowing passes mean a "
+            f"rebuild of this seed's workload crossed it (see SPARSE_SEED)")
+    shapes = {"u": (1, n_steps, n_agents, 2), "values": (1, n_steps, n_agents, 6),
+              "network": (1, n_steps, n_agents), "reward": (1, n_steps)}
+    for key, shape in shapes.items():
+        if tuple(traj[key].shape) != shape or not torch.isfinite(traj[key]).all():
+            raise AssertionError(f"{key}: shape {tuple(traj[key].shape)} or not finite")
+    first = check_sparse_first_step(env, params, x0, traj)
+
+    # the same rollout again, warm (the first call pays one-time CUDA set-up),
+    # and the time of one table build, to state the rate without the builds
+    _sync()
+    t1 = time.perf_counter()
+    env.expert_rollout(state, params, n_steps)
+    _sync()
+    warm_s = time.perf_counter() - t1
+    build_ms = time_ms(lambda: sf.verlet_build(x0, cr, skin))
+    build_s = (1 + rebuilds) * build_ms / 1e3
+    return {
+        "k3_launches": k3_launches, "k1_launches": k1_launches, "overflowing_passes": overflowed,
+        "verlet_rebuilds": rebuilds, **first, "seconds": seconds, "warm_seconds": warm_s,
+        "table_build_ms": build_ms,
+        "agent_steps_per_s": n_agents * n_steps / seconds,
+        "warm_agent_steps_per_s": n_agents * n_steps / warm_s,
+        "warm_agent_steps_per_s_without_table_builds": n_agents * n_steps / (warm_s - build_s),
+        "mean_reward": float(traj["reward"].mean()),
+    }
+
+
+def phase_sparse_reset(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
+    """Phase 11: FlockingSparse-v0 from its registered reset; each pass
+    runs on K3 or, where the table overflows, on K1."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+    from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout
+
+    env, params = gft.make("FlockingSparse-v0", **overrides)
+    cr, cr2 = params.comm_radius, params.comm_radius2
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    gen_state = gen.get_state()
+    _sync()
+    k1.launches = sf.launches = sf.verlet_rebuilds = sf.overflow_passes = 0
+    t0 = time.perf_counter()
+    final, traj = batch_expert_rollout(env, params, gen, n_envs, n_steps)
+    _sync()
+    seconds = time.perf_counter() - t0
+    tries = env.last_reset_tries
+    k3_launches, k1_launches = sf.launches, k1.launches
+    overflowed, rebuilds = sf.overflow_passes, sf.verlet_rebuilds
+    # the reset's acceptance tests, its observation, the first pass, the steps
+    passes = tries + 1 + 1 + n_steps
+    if k3_launches + k1_launches != passes or k1_launches != overflowed:
+        raise AssertionError(
+            f"K3 {k3_launches} + K1 {k1_launches} launches for {passes} passes, "
+            f"{overflowed} of them overflowing")
+    for key in ("u", "reward", "values", "network"):
+        if not torch.isfinite(traj[key]).all():
+            raise AssertionError(f"non-finite {key} in the FlockingSparse reset rollout")
+
+    # the same start state again (same draws), then K1 in both channel sets
+    # against its plain version on it, and the first step against the plain
+    # pipeline
+    replay = torch.Generator(device=device)
+    replay.set_state(gen_state)
+    x0 = env.reset_env(replay, params, n_envs)[0].x
+    k1_core = compare_sums(k1.flocking_sums(x0, cr, cr2),
+                           k1.flocking_sums_block_reference(x0, x0, 0, 0, cr, cr2, "core"),
+                           "core")
+    k1_full = compare_sums(k1.flocking_sums_block(x0, x0, 0, 0, cr, cr2, channels="full"),
+                           k1.flocking_sums_block_reference(x0, x0, 0, 0, cr, cr2, "full"),
+                           "full")
+    first = check_sparse_first_step(env, params, x0, traj)
+    _sync()
+    t1 = time.perf_counter()
+    env.expert_rollout(final, params, n_steps)
+    _sync()
+    roll_s = time.perf_counter() - t1
+    n = params.n_agents
+    return {
+        "k3_launches": k3_launches, "k1_launches": k1_launches, "overflowing_passes": overflowed,
+        "passes": passes, "reset_tries": tries, "verlet_rebuilds": rebuilds,
+        "k1_core_vs_plain": k1_core, "k1_full_vs_plain": k1_full, **first,
+        "seconds": seconds, "rollout_seconds": roll_s,
+        "agent_steps_per_s": n_envs * n_steps * n / seconds,
+        "rollout_agent_steps_per_s": n_envs * n_steps * n / roll_s,
     }
 
 
@@ -465,15 +744,32 @@ def main() -> int:
     _sync()
     print("phase 8 Coverage-v0 B=8192 R=6 16 steps: " + json.dumps(cv))
 
+    # 9. K3 against its plain version
+    k3 = phase_sparse_kernel_check(device, [(1, 65536), (16, 16384)])
+    _sync()
+    print("phase 9 K3 vs plain: " + json.dumps(k3))
+
+    # 10. FlockingSparse-v0 main path at N=65,536
+    sp = phase_sparse_main(device, n_agents=65536, n_steps=SPARSE_STEPS)
+    _sync()
+    print(f"phase 10 FlockingSparse-v0 B=1 N=65536 {SPARSE_STEPS} steps: " + json.dumps(sp))
+
+    # 11. FlockingSparse-v0 from its registered reset
+    sr = phase_sparse_reset(device, n_envs=4, n_steps=8)
+    _sync()
+    print("phase 11 FlockingSparse-v0 reset B=4 N=16384 8 steps: " + json.dumps(sr))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
+    k3_big = k3["timings"][0]
     print(json.dumps({"kernels": [{
         "name": "block_sums",
         "route": "cuda",
         "source": "gym_flock_tpu_torch/csrc/block_sums.cu",
         "replaces": "gym_flock_tpu/ops/pallas_flocking.py:268",
-        "launches": large["launches"] + rel["launches"],
-        "max_abs_err": k["worst"]["abs"],
+        "launches": large["launches"] + rel["launches"] + sr["k1_launches"],
+        "max_abs_err": max(k["worst"]["abs"], k3["k1_dense_a"]["abs"],
+                           sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "timings": k["timings"],
@@ -487,6 +783,16 @@ def main() -> int:
         "ms": k5_big["ms"],
         "plain_ms": k5_big["plain_ms"],
         "timings": k5r["cases"][:2],
+    }, {
+        "name": "sparse_sums",
+        "route": "cuda",
+        "source": "gym_flock_tpu_torch/csrc/sparse_sums.cu",
+        "replaces": "gym_flock_tpu/ops/sparse_flocking.py:249",
+        "launches": sp["k3_launches"] + sr["k3_launches"],
+        "max_abs_err": k3["worst"]["abs"],
+        "ms": k3_big["ms"],
+        "plain_ms": k3_big["plain_ms"],
+        "timings": k3["timings"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -2,9 +2,10 @@
 
 Batched swarm environments on one NVIDIA GPU: every tensor leads with the
 batch of envs, randomness comes from explicit ``torch.Generator``s, and the
-pairwise flocking pass runs on a CUDA kernel written for Hopper
-(``csrc/block_sums.cu``, built with ``nvcc`` at first use).  On CPU tensors
-the same functions run their plain PyTorch versions.
+hot passes (flocking pairwise sums, their cell-list form, the greedy
+coverage expert) run on CUDA kernels written for Hopper (``csrc/*.cu``,
+built with ``nvcc`` at first use).  On CPU tensors the same functions run
+their plain PyTorch versions.
 
     import torch
     import gym_flock_tpu_torch as gft

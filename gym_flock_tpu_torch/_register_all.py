@@ -6,7 +6,11 @@ import dataclasses
 
 from gym_flock_tpu_torch.core.registry import register
 from gym_flock_tpu_torch.envs.coverage import coverage_factory
-from gym_flock_tpu_torch.envs.flocking import FlockingRelativeEnv, LargeFlockingEnv
+from gym_flock_tpu_torch.envs.flocking import (
+    FlockingRelativeEnv,
+    LargeFlockingEnv,
+    SparseFlockingEnv,
+)
 
 
 def _flocking_factory(cls):
@@ -20,6 +24,7 @@ def _flocking_factory(cls):
 
 register("FlockingRelative-v0", _flocking_factory(FlockingRelativeEnv), 1000)
 register("FlockingLarge-v0", _flocking_factory(LargeFlockingEnv), 1000)
+register("FlockingSparse-v0", _flocking_factory(SparseFlockingEnv), 1000)
 
 register("Coverage-v0", coverage_factory("coverage"), 75)
 register("CoverageARL-v0", coverage_factory("arl"), 100000)

@@ -1,15 +1,18 @@
 """Flocking environments in PyTorch, batched (counterpart of
 ``gym_flock_tpu/envs/flocking.py``).
 
-So far: ``FlockingRelativeEnv`` (``FlockingRelative-v0``) and
-``LargeFlockingEnv`` (``FlockingLarge-v0``).  Every tensor leads with the
-batch of swarms: ``x`` is ``[B, N, 4]`` rows of (px, py, vx, vy).
+So far: ``FlockingRelativeEnv`` (``FlockingRelative-v0``),
+``LargeFlockingEnv`` (``FlockingLarge-v0``) and ``SparseFlockingEnv``
+(``FlockingSparse-v0``).  Every tensor leads with the batch of swarms: ``x``
+is ``[B, N, 4]`` rows of (px, py, vx, vy).
 
 At small N the fused observation/expert pass is dense PyTorch over
 ``[B, N, N]`` pair tensors, as the JAX package computes it with dense XLA
 ops.  ``LargeFlockingEnv`` computes every pairwise reduction through K1
-(``ops.flocking_sums``), and both envs' reset acceptance test runs on K1's
-"full" channels (min r^2 and degree).
+(``ops.flocking_sums``), and the reset acceptance test of both runs on K1's
+"full" channels (min r^2 and degree).  ``SparseFlockingEnv`` runs them on
+the cell-list pipeline and K3 (``ops.sparse_flocking``), with a Verlet table
+carried across the steps of its fused rollout.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from gym_flock_tpu_torch.core.env import Env, EnvState
 from gym_flock_tpu_torch.core.spaces import Box
+from gym_flock_tpu_torch.ops import sparse_flocking as sf
 from gym_flock_tpu_torch.ops.flocking_sums import (
     flocking_features_large,
     flocking_sums,
@@ -34,6 +38,7 @@ __all__ = [
     "FlockingState",
     "FlockingRelativeEnv",
     "LargeFlockingEnv",
+    "SparseFlockingEnv",
     "flocking_features",
     "flocking_obs_expert_pass",
     "turner_controller",
@@ -52,10 +57,10 @@ class FlockingParams:
     flocking_relative.py:27-64.
 
     Left out until their variants are ported: ``n_leaders``,
-    ``n_obstacles``, ``n_neighbors``, ``verlet_skin``, ``parity_exact``,
-    ``dt_mean``, ``dt_sigma``, ``stoch_scale`` and ``stoch_max_accel``
-    (the Leader, Obstacle, Absolute, Sparse, parity-mode and Stochastic
-    envs read them; the two envs here do not).
+    ``n_obstacles``, ``n_neighbors``, ``parity_exact``, ``dt_mean``,
+    ``dt_sigma``, ``stoch_scale`` and ``stoch_max_accel`` (the Leader,
+    Obstacle, Absolute, parity-mode and Stochastic envs read them; the envs
+    here do not).
     """
 
     n_agents: int = 100
@@ -67,6 +72,10 @@ class FlockingParams:
     max_reset_tries: int = 64
     # reference params_from_cfg scales r_max by sqrt(n) (flocking_relative.py:75)
     auto_scale_r_max: bool = True
+    # SparseFlockingEnv rollouts: Verlet slack distance (the Hilbert sort and
+    # candidate table are rebuilt only when an agent moved > skin/2 since the
+    # last build).  None resolves to comm_radius; <= 0 rebuilds every step.
+    verlet_skin: float | None = None
     comm_radius: float = 0.9
     dt: float = 0.01
     v_max: float = 5.0
@@ -352,6 +361,16 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         """``(values, network, s_gx, s_gy, s_dvx, s_dvy)`` at ``x``."""
         return flocking_obs_expert_pass(x, params, centralized)
 
+    def _fused_carry_init(self, x: torch.Tensor, params: FlockingParams):
+        """State carried across the steps of the fused rollout: ``None`` for
+        the dense envs; the sparse env's Verlet table."""
+        return None
+
+    def _fused_pass_carry(self, x, params: FlockingParams, centralized: bool, carry):
+        """``(fused pass at x, carry')``; envs with cross-step kernel state
+        override this pair of hooks, not the rollout loop."""
+        return self._fused_pass(x, params, centralized), carry
+
     def expert_rollout(
         self,
         state: FlockingState,
@@ -372,14 +391,17 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         if centralized is None:
             centralized = params.centralized
         x = state.x
-        _, _, s_gx, s_gy, s_dvx, s_dvy = self._fused_pass(x, params, centralized)
+        carry = self._fused_carry_init(x, params)
+        (_, _, s_gx, s_gy, s_dvx, s_dvy), carry = self._fused_pass_carry(
+            x, params, centralized, carry
+        )
         traj: Dict[str, torch.Tensor] = {}
         for t in range(n_steps):
             controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
             u = self._rollout_action(controls, params)
             x = self._rollout_integrate(x, u, params, generator)
-            values, network, s_gx, s_gy, s_dvx, s_dvy = self._fused_pass(
-                x, params, centralized
+            (values, network, s_gx, s_gy, s_dvx, s_dvy), carry = self._fused_pass_carry(
+                x, params, centralized, carry
             )
             step = {"u": u, "values": values, "network": network,
                     "reward": _instant_cost(x)}
@@ -438,10 +460,11 @@ class LargeFlockingEnv(FlockingRelativeEnv):
         )
 
     def _sums(self, x, params, channels: str = "core"):
+        """Channel sums at ``x``: ``"core"``, or ``"expert"`` for the
+        decentralized expert's masked gradient sums (10/11), which the dense
+        kernel has in its "full" set."""
         if channels == "core":
             return flocking_sums(x, params.comm_radius, params.comm_radius2)
-        # the decentralized expert's masked gradient sums (10/11) are in the
-        # "full" set
         return flocking_sums_block(
             x, x, 0, 0, params.comm_radius, params.comm_radius2, channels="full"
         )
@@ -467,5 +490,69 @@ class LargeFlockingEnv(FlockingRelativeEnv):
         return values, network, gx, gy, dvx, dvy
 
     def _fused_pass(self, x, params, centralized):
-        s = self._sums(x, params, channels="core" if centralized else "full")
+        s = self._sums(x, params, channels="core" if centralized else "expert")
         return self._unpack_sums(s, x, centralized)
+
+
+class SparseFlockingEnv(LargeFlockingEnv):
+    """Cell-list variant: pairwise work that grows with the neighbour count,
+    not with N^2.
+
+    Same semantics as :class:`LargeFlockingEnv`: the Hilbert sort and block
+    pruning of ``ops.sparse_flocking`` remove only pairs that add nothing,
+    so only the summation order differs.  ``n_agents`` must be a multiple of
+    128.  A batch whose candidate table overflows runs on the dense K1 pass
+    instead (the JAX package's semantics).  The fused rollout carries a
+    Verlet table, rebuilt only when an agent has moved more than
+    ``verlet_skin/2`` since the last build; ``verlet_skin <= 0`` rebuilds
+    every step.
+    """
+
+    def default_params(self) -> FlockingParams:
+        return FlockingParams(n_agents=16384, max_steps=1000)
+
+    def _sums(self, x, params, channels: str = "core"):
+        return sf.flocking_sums_sparse(
+            x, params.comm_radius, params.comm_radius2, channels=channels
+        )
+
+    def _reset_accept(self, x, params):
+        # the cell-list test is exact and touches no [B, N, N] array
+        return sf.sparse_reset_accept(
+            x, params.comm_radius, params.comm_radius2, params.min_dist_thresh
+        )
+
+    def _obs(self, state: FlockingState, params: FlockingParams):
+        s = self._sums(state.x, params)
+        return s[..., 0:6], s[..., 8]
+
+    def controller(self, state, params, generator=None, centralized=None):
+        if centralized is None:
+            centralized = params.centralized
+        _, _, s_gx, s_gy, s_dvx, s_dvy = self._fused_pass(state.x, params, centralized)
+        controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
+        return self._rollout_action(controls, params)
+
+    def _verlet_skin(self, params: FlockingParams):
+        """The resolved Verlet slack, or ``None`` when reuse is off."""
+        if params.verlet_skin is not None and params.verlet_skin <= 0.0:
+            return None
+        if params.n_agents % sf.BLOCK != 0:
+            return None
+        return params.comm_radius if params.verlet_skin is None else params.verlet_skin
+
+    def _fused_carry_init(self, x, params):
+        skin = self._verlet_skin(params)
+        if skin is None:
+            return None
+        return sf.verlet_build(x, params.comm_radius, skin)
+
+    def _fused_pass_carry(self, x, params, centralized, carry):
+        if carry is None:  # reuse off: a fresh table every pass
+            return super()._fused_pass_carry(x, params, centralized, carry)
+        s, carry = sf.flocking_sums_sparse_verlet(
+            x, carry, params.comm_radius, params.comm_radius2,
+            self._verlet_skin(params),
+            channels="core" if centralized else "expert",
+        )
+        return self._unpack_sums(s, x, centralized), carry

@@ -115,5 +115,7 @@ def load():
         lib.gft_block_sums.restype = ctypes.c_int
         lib.gft_rowmin.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.gft_rowmin.restype = ctypes.c_int
+        lib.gft_sparse_sums.argtypes = [p, p, p, i, i, i, f, f, i, p]
+        lib.gft_sparse_sums.restype = ctypes.c_int
         _lib = lib
     return _lib

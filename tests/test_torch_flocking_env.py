@@ -250,12 +250,14 @@ def test_registry_makes_the_ported_ids():
     assert params.max_steps == 1000
     env, params = gft.make("FlockingLarge-v0")
     assert isinstance(env, tfl.LargeFlockingEnv) and params.n_agents == 4096
-    with pytest.raises(KeyError):
-        gft.make("FlockingSparse-v0")  # not ported yet
+    env, params = gft.make("FlockingSparse-v0")
+    assert isinstance(env, tfl.SparseFlockingEnv) and params.n_agents == 16384
+    assert params.max_steps == 1000 and params.verlet_skin is None
 
 
 def test_params_from_jax_maps_every_field():
-    jp = jfl.FlockingParams(n_agents=17, comm_radius=1.25, max_reset_tries=5, dt=0.02)
+    jp = jfl.FlockingParams(n_agents=17, comm_radius=1.25, max_reset_tries=5, dt=0.02,
+                            verlet_skin=0.5)
     tp = convert.params_from_jax(jp)
     for f in dataclasses.fields(tp):
         assert getattr(tp, f.name) == getattr(jp, f.name), f.name
