@@ -62,6 +62,38 @@ Phases, each printing one line:
    that the port found overflowing.  On the reset's state, K1 in "core" and
    "full" is held against its plain version, and the first step's action
    and observation against the plain pipeline.
+12. K2 (``adj_matmul``) against its plain version on the card: (a) the
+   trainer's batch, B=16, N=4096, F=6 (FlockingLarge-v0 reset draws), raw
+   and mean-pooled; (b) a cross-block tile, rows 0..999 against columns
+   600..1299 (the ids overlap), F=16; (c) dH of both pool modes and of the
+   block form's swapped-operand backward at B=4, N=4096, F=6, against
+   ``torch.autograd`` of the plain version.  Tolerances: the degree
+   exactly; outputs and gradients max |k - p| / (1 + |p|) < 1e-6 (both sum
+   in f64 and round once).  Kernel and plain times at (a).
+13. K4 (``sparse_adj``) against its plain version, same tolerances, on
+   sorted operands of phase 9's states: (a) N=65,536, B=1 with the table
+   the aggregation builds (at sqrt(comm_radius2), no skin) and with phase
+   9's Verlet table; (b) N=16,384, B=16, where the degree through the
+   table must equal dense K2's; (c) dH through ``adjacency_matmul_sparse``
+   on 4 of (b)'s swarms, both pool modes; (d) phase 11's reset state
+   (N=16,384, B=4), whose table overflows: the pass must run on dense K2.
+   Kernel and plain times at (a) and (b).
+14. main path, ``LargeFlockingImitationTrainer`` on ``FlockingLarge-v0``
+   (N=4096): a batch of 4 envs x 4 steps, 5 updates.  K2 must launch
+   exactly twice an update (k_hops - 1) and never for a backward pass
+   (the aggregation acts on inputs before every weight); the first loss
+   must equal that of the same batch and weights through the plain
+   aggregation within 1e-5 relative; losses finite, parameters moved.
+   Prints the step's split: collect and update times, K2's and one K1
+   pass's times by CUDA events.
+15. main path, ``LargeAggregationGNN`` with ``khop_aggregate_sparse`` on
+   ``FlockingSparse-v0`` at N=65,536: a batch of 4 steps from bench
+   metric 4's state (phase 10's seed), 3 updates.  Every aggregation pass
+   must run on K4 or, where its table overflows, on dense K2 (counted);
+   K4 must have launched; the loss must equal the plain aggregation's.
+16. main path, ``FlockingImitationTrainer`` on ``FlockingRelative-v0``
+   (N=100): 1024 envs x 8 steps, 5 updates.  K1 runs in the resets (one
+   launch per draw); the aggregation is dense ``torch.matmul``.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -91,6 +123,10 @@ SPARSE_SEED = 10
 K5_CASES = ("ExploreFull B=512 R=100", "Coverage B=8192 R=6 G=8", "ragged B=3 R=33 T=300 G=2")
 U_ATOL = 1e-4
 REPS = 7
+CR2 = 0.9 * 0.9  # the flocking envs' comm_radius2
+# K2 and K4 against their plain versions: both sum in f64 and round to f32
+# once, so they may differ by one f32 rounding, ~1.2e-7 |p|
+ADJ_TOL = 1e-6
 
 
 def _sync():
@@ -665,6 +701,462 @@ def phase_coverage(device: str, env, params, n_envs: int, n_steps: int) -> dict:
     }
 
 
+def reset_counts() -> None:
+    """Every kernel's launch counter, and the sparse pipeline's branch
+    counters, to 0."""
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import rowmin as k5
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+
+    k1.launches = k2.launches = k2.backward_launches = k5.launches = 0
+    sf.launches = sf.adj_launches = sf.adj_backward_launches = 0
+    sf.overflow_passes = sf.adj_overflow_passes = sf.verlet_rebuilds = 0
+
+
+class AdjErrors:
+    """The worst errors of aggregations (K2, K4, or gradients through them)
+    held against their plain versions."""
+
+    def __init__(self):
+        self.rel = 0.0
+        self.abs = 0.0
+
+    def check(self, got, want) -> float:
+        """Raises unless max |k - p| / (1 + |p|) < ADJ_TOL; returns it."""
+        import torch
+
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{tuple(got.shape)} {got.dtype} against plain "
+                                 f"{tuple(want.shape)} {want.dtype}")
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError("non-finite aggregation")
+        diff = (got - want).abs()
+        rel = float((diff / (1.0 + want.abs())).max())
+        if not rel < ADJ_TOL:
+            raise AssertionError(f"aggregation: max |k-p|/(1+|p|) = {rel:.3e} >= {ADJ_TOL}")
+        self.rel = max(self.rel, rel)
+        self.abs = max(self.abs, float(diff.max()))
+        return rel
+
+
+def compare_deg(got, want) -> None:
+    import torch
+
+    if not torch.equal(got, want):
+        raise AssertionError(f"degree differs in {int((got != want).sum())} agents")
+
+
+def _pool(out, deg, mean_pool: bool):
+    import torch
+
+    if not mean_pool:
+        return out
+    return out / torch.where(deg == 0, 1.0, deg)[..., None].to(out.dtype)
+
+
+def plain_adjacency_matmul(x, h, cr2, mean_pool: bool):
+    """``ops.adjacency_matmul.adjacency_matmul`` composed of K2's plain
+    version, differentiable by autograd."""
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+
+    return _pool(*k2.adjacency_matmul_block_reference(x, x, h, 0, 0, cr2), mean_pool)
+
+
+def plain_adjacency_matmul_sparse(x, h, cr2, mean_pool: bool, k_max: int = 16):
+    """``ops.sparse_flocking.adjacency_matmul_sparse`` composed of K4's
+    plain version (K2's where the table overflows), differentiable by
+    autograd: the same sort and table, then the plain pass."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+
+    cr = torch.sqrt(torch.tensor(cr2, dtype=torch.float32, device=x.device))
+    perm = sf.hilbert_order(x, cr)
+    xs = sf.permute(x, perm)
+    table, overflow = sf.block_pair_table(xs, cr, k_max)
+    if bool(overflow.any()):
+        return _pool(*k2.adjacency_matmul_block_reference(x, x, h, 0, 0, cr2), mean_pool)
+    out, deg = sf.sparse_adj_sorted_reference(xs, sf.permute(h, perm), table, cr2)
+    return _pool(sf.unsort(out, perm), sf.unsort(deg[..., None], perm)[..., 0], mean_pool)
+
+
+def plain_khop(x, features, cr2, k_hops: int, sparse: bool):
+    """``[X, AX, A^2 X, ...]`` on the plain passes: the aggregation of the
+    large GNN without K2 or K4."""
+    import torch
+
+    step = plain_adjacency_matmul_sparse if sparse else plain_adjacency_matmul
+    zs = [features]
+    for _ in range(k_hops - 1):
+        zs.append(step(x, zs[-1], cr2, True))
+    return torch.cat(zs, dim=-1)
+
+
+def grad_pair(fn, plain_fn, h, cotangent):
+    """``d sum(fn(h) * cotangent) / dh`` through the kernel's autograd.Function
+    and through autograd of its plain version."""
+    grads = []
+    for f in (fn, plain_fn):
+        hg = h.detach().clone().requires_grad_()
+        (f(hg) * cotangent).sum().backward()
+        grads.append(hg.grad)
+    return grads
+
+
+def phase_adj_check(device: str, b: int, n: int, f: int) -> dict:
+    """Phase 12: K2 against its plain version, forward and backward, at
+    ``(b, n, f)``, a cross-block tile and the gradients."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    err = AdjErrors()
+
+    # (a) the trainer's batch: FlockingLarge-v0 reset draws
+    x = draw_swarms(b, n, device, SEED + n)
+    h = torch.randn(b, n, f, generator=gen, device=device)
+    out, deg = k2.adjacency_matmul_block(x, x, h, 0, 0, CR2)
+    want, want_deg = k2.adjacency_matmul_block_reference(x, x, h, 0, 0, CR2)
+    _sync()
+    compare_deg(deg, want_deg)
+    err.check(out, want)
+    for mean_pool in (False, True):
+        got = k2.adjacency_matmul(x, h, CR2, mean_pool=mean_pool)
+        err.check(got, plain_adjacency_matmul(x, h, CR2, mean_pool))
+    mean_deg = float(want_deg.mean())
+
+    # (b) a cross-block tile: rows are agents 0..999, columns 600..1299 of
+    # the same swarms, so ids 600..999 meet themselves; F=16 (two chunks)
+    xb = draw_swarms(3, 1300, device, SEED + 1300)
+    hb = torch.randn(3, 1300, 16, generator=gen, device=device)
+    xr, xc, hc = xb[:, :1000].contiguous(), xb[:, 600:].contiguous(), hb[:, 600:].contiguous()
+    out_b, deg_b = k2.adjacency_matmul_block(xr, xc, hc, 0, 600, CR2)
+    want_b, want_deg_b = k2.adjacency_matmul_block_reference(xr, xc, hc, 0, 600, CR2)
+    _sync()
+    compare_deg(deg_b, want_deg_b)
+    err.check(out_b, want_b)
+
+    # (c) dH of 4 swarms: both pool modes, and the block form's
+    # swapped-operand backward (rows 0..5n/8, columns 3n/8..n: the ids
+    # overlap)
+    xg, hg = x[:4].contiguous(), h[:4].contiguous()
+    co = torch.randn(hg.shape, generator=gen, device=device)
+    backward = k2.backward_launches
+    for mean_pool in (False, True):
+        err.check(*grad_pair(lambda v: k2.adjacency_matmul(xg, v, CR2, mean_pool),
+                             lambda v: plain_adjacency_matmul(xg, v, CR2, mean_pool), hg, co))
+    m, c0 = 5 * n // 8, 3 * n // 8
+    xr, xc = xg[:, :m].contiguous(), xg[:, c0:].contiguous()
+    hc = hg[:, c0:].contiguous()
+    co_b = co[:, :m].contiguous()
+    err.check(*grad_pair(
+        lambda v: k2.adjacency_matmul_block(xr, xc, v, 0, c0, CR2)[0],
+        lambda v: k2.adjacency_matmul_block_reference(xr, xc, v, 0, c0, CR2)[0], hc, co_b))
+    _sync()
+    backward = k2.backward_launches - backward
+    if backward != 3:
+        raise AssertionError(f"{backward} K2 backward launches for 3 gradients")
+
+    ms = time_ms(lambda: k2.adjacency_matmul_block(x, x, h, 0, 0, CR2))
+    plain = time_ms(lambda: k2.adjacency_matmul_block_reference(x, x, h, 0, 0, CR2))
+    return {"max_rel": err.rel, "max_abs_err": err.abs,
+            "backward_launches": backward, "mean_degree": mean_deg,
+            "timing": {"case": f"B={b},N={n},F={f}", "ms": ms, "plain_ms": plain,
+                       "gpairs_per_s": b * n * n / (ms * 1e6)}}
+
+
+def phase_sparse_adj_check(device: str, shapes, **reset_overrides) -> dict:
+    """Phase 13: K4 against its plain version, forward and backward, at the
+    two ``(B, N)`` of ``shapes`` (B=1 first), and the overflow branch on
+    dense K2 at FlockingSparse-v0's reset."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    cr = torch.sqrt(torch.tensor(CR2, dtype=torch.float32, device=device))
+    err = AdjErrors()
+    timings = []
+
+    def check_sorted(name, xs, hs, table, time_it):
+        out, deg = sf.sparse_adj_sorted(xs, hs, table, CR2)
+        want, want_deg = sf.sparse_adj_sorted_reference(xs, hs, table, CR2)
+        _sync()
+        compare_deg(deg, want_deg)
+        err.check(out, want)
+        if time_it:
+            b, n, _ = xs.shape
+            pairs = int((table >= 0).sum()) * sf.BLOCK * sf.BLOCK
+            res = {"case": name, "B": b, "N": n, "F": hs.shape[-1],
+                   "listed_slots_per_row_block": float((table >= 0).sum(-1).float().mean()),
+                   "max_slots": int((table >= 0).sum(-1).max()), "listed_pairs": pairs}
+            res["ms"] = time_ms(lambda: sf.sparse_adj_sorted(xs, hs, table, CR2))
+            res["plain_ms"] = time_ms(lambda: sf.sparse_adj_sorted_reference(xs, hs, table,
+                                                                             CR2))
+            res["gpairs_per_s"] = pairs / (res["ms"] * 1e6)
+            timings.append(res)
+
+    # (a) and (b) on phase 9's states (bench metric 4's), F=6: the table the
+    # aggregation builds (at sqrt(cr2), no skin) and, at (a), phase 9's
+    # Verlet table (skin = the radius), a superset
+    for b, n in shapes:
+        x = bench_state(b, n, SEED + b, device)
+        h = torch.randn(b, n, 6, generator=gen, device=device)
+        perm = sf.hilbert_order(x, cr)
+        xs, hs = sf.permute(x, perm), sf.permute(h, perm)
+        table, overflow = sf.block_pair_table(xs, cr, 16)
+        if bool(overflow.any()):
+            raise AssertionError(f"the B={b}, N={n} aggregation table overflows k_max")
+        check_sorted(f"B={b},N={n}", xs, hs, table, time_it=True)
+        if b == 1:
+            vs = sf.verlet_build(x, 0.9, 0.9)
+            check_sorted(f"B=1,N={n},Verlet table", sf.permute(x, vs.perm),
+                         sf.permute(h, vs.perm), vs.table, time_it=True)
+
+    # exact pruning at (b): the degree through the table equals dense K2's
+    _, deg_s = sf.sparse_adj_sorted(xs, hs, table, CR2)
+    _, deg_d = k2.adjacency_matmul_block(x, x, h, 0, 0, CR2)
+    compare_deg(sf.unsort(deg_s[..., None], perm)[..., 0], deg_d)
+
+    # (c) dH through the pipeline on 4 of (b)'s swarms, both pool modes
+    xg, hg = x[:4].contiguous(), h[:4].contiguous()
+    co = torch.randn(hg.shape, generator=gen, device=device)
+    backward, overflowed = sf.adj_backward_launches, sf.adj_overflow_passes
+    for mean_pool in (False, True):
+        err.check(*grad_pair(
+            lambda v: sf.adjacency_matmul_sparse(xg, v, CR2, mean_pool=mean_pool),
+            lambda v: plain_adjacency_matmul_sparse(xg, v, CR2, mean_pool), hg, co))
+    _sync()
+    backward = sf.adj_backward_launches - backward
+    if backward != 2 or sf.adj_overflow_passes != overflowed:
+        raise AssertionError(f"{backward} K4 backward launches for 2 gradients, "
+                             f"{sf.adj_overflow_passes - overflowed} overflowing passes")
+
+    # (d) phase 11's reset state (N=16,384, B=4): the table overflows, so the
+    # pass runs on dense K2
+    env, params = gft.make("FlockingSparse-v0", **reset_overrides)
+    x0 = env.reset_env(torch.Generator(device=device).manual_seed(SEED), params, 4)[0].x
+    h0 = torch.randn(4, params.n_agents, 6, generator=gen, device=device)
+    before = (sf.adj_launches, sf.adj_overflow_passes, k2.launches)
+    got = sf.adjacency_matmul_sparse(x0, h0, CR2)
+    _sync()
+    took = (sf.adj_launches - before[0], sf.adj_overflow_passes - before[1],
+            k2.launches - before[2])
+    if took != (0, 1, 1):
+        raise AssertionError(f"the reset state's pass took (K4, overflowing, K2) = {took}, "
+                             f"want (0, 1, 1)")
+    dense_rel = err.check(got, plain_adjacency_matmul_sparse(x0, h0, CR2, True))
+    return {"max_rel": err.rel, "max_abs_err": err.abs, "backward_launches": backward,
+            "reset_state_on_k2": {"max_rel": dense_rel}, "timings": timings}
+
+
+def phase_large_train(device: str, n_envs: int, n_steps: int, n_updates: int,
+                      **overrides) -> dict:
+    """Phase 14: ``LargeFlockingImitationTrainer`` on FlockingLarge-v0, its
+    aggregation on K2."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.models import LargeAggregationGNN
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.parallel import LargeFlockingImitationTrainer
+
+    env, params = gft.make("FlockingLarge-v0", **overrides)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer = LargeFlockingImitationTrainer(env, params, device=device)
+    trainer.init(gen)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    batch = trainer.collect(gen, n_envs, n_steps)
+    _sync()
+    collect_s = time.perf_counter() - t0
+    k1_collect = k1.launches
+    # the reset's draws and its observation, then one fused pass a step
+    if k1_collect != env.last_reset_tries + 1 + n_steps or k2.launches != 0:
+        raise AssertionError(f"collect: K1 {k1_collect} launches for {env.last_reset_tries} "
+                             f"reset draws + 1 + {n_steps} passes, K2 {k2.launches}")
+
+    # the first batch's loss through the plain aggregation, same weights
+    plain = LargeAggregationGNN(
+        comm_radius2=params.comm_radius2, device=device,
+        aggregate_fn=lambda x, f: plain_khop(x, f, params.comm_radius2, 3, sparse=False))
+    plain.load_state_dict(trainer.model.state_dict())
+    with torch.no_grad():
+        plain_loss = float(trainer_loss(plain, batch))
+    k2.launches = 0
+
+    t0 = time.perf_counter()
+    losses = [float(trainer.update(batch))]
+    _sync()
+    first_update_s = time.perf_counter() - t0
+    # the other steps as ``train_step`` takes them, collect and update timed
+    # apart (the first call of each pays one-time set-up)
+    collects, updates = [], []
+    for _ in range(n_updates - 1):
+        t0 = time.perf_counter()
+        step_batch = trainer.collect(gen, n_envs, n_steps)
+        _sync()
+        t1 = time.perf_counter()
+        losses.append(float(trainer.update(step_batch)))
+        _sync()
+        collects.append(t1 - t0)
+        updates.append(time.perf_counter() - t1)
+    k2_launches, k2_backward = k2.launches, k2.backward_launches
+    if k2_launches != 2 * n_updates or k2_backward != 0:
+        raise AssertionError(f"K2 {k2_launches} launches ({k2_backward} backward) for "
+                             f"{n_updates} updates: want 2 forward each (k_hops - 1)")
+    loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    if not loss_rel < 1e-5:
+        raise AssertionError(f"first loss {losses[0]} against {plain_loss} through the plain "
+                             f"aggregation: relative {loss_rel:.3e}")
+    check_training(losses, before, trainer.model)
+
+    # one train step's split: the K2 aggregation and one K1 pass by CUDA
+    # events, on this batch's shape
+    xs, feats, _ = batch
+    squashed = torch.asinh(feats)
+    k2_ms = time_ms(lambda: k2.khop_aggregate(xs, squashed, params.comm_radius2, 3))
+    x_pass = xs[:n_envs].contiguous()
+    k1_pass_ms = time_ms(lambda: env._fused_pass(x_pass, params, True))
+    return {"losses": losses, "plain_first_loss": plain_loss, "first_loss_rel": loss_rel,
+            "k2_launches": k2_launches, "k2_backward_launches": k2_backward,
+            "k1_collect_launches": k1_collect, "reset_tries": env.last_reset_tries,
+            "first_collect_seconds": collect_s, "first_update_seconds": first_update_s,
+            "collect_seconds": statistics.median(collects),
+            "update_seconds": statistics.median(updates),
+            "k2_aggregation_ms": k2_ms, "k1_pass_ms": k1_pass_ms,
+            "batch": list(xs.shape)}
+
+
+def trainer_loss(model, batch):
+    import torch
+
+    *inputs, actions = batch
+    return torch.mean((model(*inputs) - actions) ** 2)
+
+
+def check_training(losses, before, model) -> None:
+    import math
+
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    moved = max(float((p.detach() - b).abs().max()) for p, b in zip(model.parameters(), before))
+    if not moved > 0.0:
+        raise AssertionError("the parameters did not move")
+
+
+def phase_sparse_train(device: str, n_agents: int, n_steps: int, n_updates: int) -> dict:
+    """Phase 15: ``LargeAggregationGNN`` with ``khop_aggregate_sparse`` on
+    FlockingSparse-v0 from bench metric 4's state, its aggregation on K4."""
+    import functools
+
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.models import LargeAggregationGNN
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+    from gym_flock_tpu_torch.parallel import (LargeFlockingImitationTrainer,
+                                              collect_large_flocking_batch)
+
+    env, params = gft.make("FlockingSparse-v0", n_agents=n_agents)
+    cr2 = params.comm_radius2
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = LargeAggregationGNN(
+        comm_radius2=cr2, generator=gen, device=device,
+        aggregate_fn=functools.partial(sf.khop_aggregate_sparse, comm_radius2=cr2, k_hops=3))
+    trainer = LargeFlockingImitationTrainer(env, params, model=model, device=device)
+    before = [p.detach().clone() for p in model.parameters()]
+    state = env.init_state(bench_state(1, n_agents, SPARSE_SEED, device), params)
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    batch = collect_large_flocking_batch(env, params, gen, 1, n_steps, init_state=state)
+    _sync()
+    collect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses = [float(trainer.update(batch)) for _ in range(n_updates)]
+    _sync()
+    update_s = time.perf_counter() - t0
+    counts = {"k3_launches": sf.launches, "k1_launches": k1.launches,
+              "k4_launches": sf.adj_launches, "k4_backward_launches": sf.adj_backward_launches,
+              "k2_fallbacks": sf.adj_overflow_passes, "k2_launches": k2.launches}
+    passes = 2 * n_updates
+    if (counts["k4_launches"] == 0 or counts["k4_backward_launches"] != 0
+            or counts["k4_launches"] + counts["k2_fallbacks"] != passes
+            or counts["k2_launches"] != counts["k2_fallbacks"]):
+        raise AssertionError(
+            f"{counts} for {passes} aggregation passes: from numpy seed {SPARSE_SEED}'s "
+            f"trajectory the tables stay within k_max; K2 fallbacks mean a state of this "
+            f"seed's workload crossed it (see SPARSE_SEED)")
+    check_training(losses, before, model)
+
+    # the trained model's loss on the batch against the plain sparse
+    # aggregation's with the same weights
+    plain = LargeAggregationGNN(comm_radius2=cr2, device=device,
+                                aggregate_fn=lambda x, f: plain_khop(x, f, cr2, 3, sparse=True))
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        plain_loss = float(trainer_loss(plain, batch))
+        got = float(trainer_loss(model, batch))
+    loss_rel = abs(got - plain_loss) / abs(plain_loss)
+    if not loss_rel < 1e-5:
+        raise AssertionError(f"loss {got} against {plain_loss} through the plain "
+                             f"aggregation: relative {loss_rel:.3e}")
+    return {**counts, "losses": losses, "loss_vs_plain_rel": loss_rel,
+            "collect_seconds": collect_s, "update_seconds_each": update_s / n_updates,
+            "batch": list(batch[0].shape)}
+
+
+def phase_relative_train(device: str, n_envs: int, n_steps: int, n_updates: int,
+                         **overrides) -> dict:
+    """Phase 16: ``FlockingImitationTrainer`` on FlockingRelative-v0; K1 in
+    the resets, the aggregation dense ``torch.matmul``."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.parallel import FlockingImitationTrainer
+
+    env, params = gft.make("FlockingRelative-v0", **overrides)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer = FlockingImitationTrainer(env, params, device=device)
+    trainer.init(gen)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    _sync()
+    reset_counts()
+    tries, losses = 0, []
+    collect_s = update_s = 0.0
+    for _ in range(n_updates):
+        t0 = time.perf_counter()
+        batch = trainer.collect(gen, n_envs, n_steps)
+        _sync()
+        t1 = time.perf_counter()
+        losses.append(float(trainer.update(batch)))
+        _sync()
+        collect_s += t1 - t0
+        update_s += time.perf_counter() - t1
+        tries += env.last_reset_tries
+    if k1.launches != tries or k2.launches != 0:
+        raise AssertionError(f"K1 {k1.launches} launches for {tries} reset draws, "
+                             f"K2 {k2.launches}")
+    check_training(losses, before, trainer.model)
+    return {"losses": losses, "k1_launches": k1.launches, "reset_tries": tries,
+            "collect_seconds_each": collect_s / n_updates,
+            "update_seconds_each": update_s / n_updates,
+            "batch": list(batch[0].shape)}
+
+
 def main() -> int:
     import torch
 
@@ -759,15 +1251,45 @@ def main() -> int:
     _sync()
     print("phase 11 FlockingSparse-v0 reset B=4 N=16384 8 steps: " + json.dumps(sr))
 
+    # 12. K2 against its plain version
+    a2 = phase_adj_check(device, b=16, n=4096, f=6)
+    _sync()
+    print("phase 12 K2 vs plain: " + json.dumps(a2))
+
+    # 13. K4 against its plain version
+    a4 = phase_sparse_adj_check(device, [(1, 65536), (16, 16384)])
+    _sync()
+    print("phase 13 K4 vs plain: " + json.dumps(a4))
+
+    # 14. the large GNN trained on FlockingLarge-v0 through K2
+    t14 = phase_large_train(device, n_envs=4, n_steps=4, n_updates=5)
+    _sync()
+    print("phase 14 LargeFlockingImitationTrainer FlockingLarge-v0 N=4096 4 envs x 4 steps, "
+          "5 updates: " + json.dumps(t14))
+
+    # 15. the large GNN with the cell-list aggregation through K4
+    t15 = phase_sparse_train(device, n_agents=65536, n_steps=4, n_updates=3)
+    _sync()
+    print("phase 15 LargeAggregationGNN + khop_aggregate_sparse FlockingSparse-v0 N=65536 "
+          "4 steps, 3 updates: " + json.dumps(t15))
+
+    # 16. the dense GNN trained on FlockingRelative-v0
+    t16 = phase_relative_train(device, n_envs=1024, n_steps=8, n_updates=5)
+    _sync()
+    print("phase 16 FlockingImitationTrainer FlockingRelative-v0 N=100 1024 envs x 8 steps, "
+          "5 updates: " + json.dumps(t16))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
+    k4_big = a4["timings"][0]
     print(json.dumps({"kernels": [{
         "name": "block_sums",
         "route": "cuda",
         "source": "gym_flock_tpu_torch/csrc/block_sums.cu",
         "replaces": "gym_flock_tpu/ops/pallas_flocking.py:268",
-        "launches": large["launches"] + rel["launches"] + sr["k1_launches"],
+        "launches": (large["launches"] + rel["launches"] + sr["k1_launches"]
+                     + t14["k1_collect_launches"] + t15["k1_launches"] + t16["k1_launches"]),
         "max_abs_err": max(k["worst"]["abs"], k3["k1_dense_a"]["abs"],
                            sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"]),
         "ms": big["ms"],
@@ -788,11 +1310,35 @@ def main() -> int:
         "route": "cuda",
         "source": "gym_flock_tpu_torch/csrc/sparse_sums.cu",
         "replaces": "gym_flock_tpu/ops/sparse_flocking.py:249",
-        "launches": sp["k3_launches"] + sr["k3_launches"],
+        "launches": sp["k3_launches"] + sr["k3_launches"] + t15["k3_launches"],
         "max_abs_err": k3["worst"]["abs"],
         "ms": k3_big["ms"],
         "plain_ms": k3_big["plain_ms"],
         "timings": k3["timings"],
+    }, {
+        "name": "adj_matmul",
+        "route": "cuda",
+        "source": "gym_flock_tpu_torch/csrc/adj_matmul.cu",
+        "replaces": "gym_flock_tpu/ops/pallas_flocking.py:488",
+        "launches": t14["k2_launches"] + t15["k2_launches"],
+        "backward_launches": t14["k2_backward_launches"],
+        "checked_backward_launches": a2["backward_launches"],
+        "max_abs_err": a2["max_abs_err"],
+        "ms": a2["timing"]["ms"],
+        "plain_ms": a2["timing"]["plain_ms"],
+        "timings": [a2["timing"]],
+    }, {
+        "name": "sparse_adj",
+        "route": "cuda",
+        "source": "gym_flock_tpu_torch/csrc/sparse_adj.cu",
+        "replaces": "gym_flock_tpu/ops/sparse_flocking.py:712",
+        "launches": t15["k4_launches"],
+        "backward_launches": t15["k4_backward_launches"],
+        "checked_backward_launches": a4["backward_launches"],
+        "max_abs_err": a4["max_abs_err"],
+        "ms": k4_big["ms"],
+        "plain_ms": k4_big["plain_ms"],
+        "timings": a4["timings"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,9 +1,9 @@
-"""Carry parameters and states across from the JAX package.
+"""Carry parameters, states and model weights across from the JAX package.
 
-These are the "weights" of an env engine: the tests start both packages
-from identical parameters and states through them.  Nothing here imports
-JAX; the functions read the fields of any object that has them, and arrays
-through ``numpy.asarray``.
+The tests start both packages from identical env parameters and states,
+and identical GNN weights (:func:`gnn_params_from_flax`), through them.
+Nothing here imports JAX; the functions read the fields of any object that
+has them, and arrays through ``numpy.asarray``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from gym_flock_tpu_torch.envs.flocking import FlockingParams, FlockingState, _st
 
 __all__ = [
     "params_from_jax", "state_from_numpy", "coverage_params_from_jax",
-    "coverage_state_from_numpy",
+    "coverage_state_from_numpy", "gnn_params_from_flax",
 ]
 
 
@@ -87,3 +87,26 @@ def coverage_state_from_numpy(state, device="cpu") -> CoverageState:
         name: _tensor(getattr(state, name), device).to(dtype)
         for name, dtype in dtypes.items()
     })
+
+
+def gnn_params_from_flax(variables, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a flax ``AggregationGNN``/``LargeAggregationGNN``'s variables
+    into the port's ``model`` of the same widths, in place, and return it.
+
+    ``params/_MLP_0/Dense_i/{kernel [in, out], bias [out]}`` map to
+    ``model.mlp.layers[i]`` as ``weight = kernel.T`` and ``bias``.
+    """
+    dense = variables["params"]["_MLP_0"]
+    layers = model.mlp.layers
+    if len(dense) != len(layers):
+        raise ValueError(f"flax MLP has {len(dense)} Dense layers, the model {len(layers)}")
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            kernel = np.asarray(dense[f"Dense_{i}"]["kernel"], np.float32)
+            bias = np.asarray(dense[f"Dense_{i}"]["bias"], np.float32)
+            if kernel.T.shape != tuple(layer.weight.shape):
+                raise ValueError(f"Dense_{i}: kernel {kernel.shape} does not fit a weight "
+                                 f"{tuple(layer.weight.shape)}")
+            layer.weight.copy_(torch.from_numpy(kernel.T.copy()))
+            layer.bias.copy_(torch.from_numpy(bias.copy()))
+    return model

@@ -117,5 +117,9 @@ def load():
         lib.gft_rowmin.restype = ctypes.c_int
         lib.gft_sparse_sums.argtypes = [p, p, p, i, i, i, f, f, i, p]
         lib.gft_sparse_sums.restype = ctypes.c_int
+        lib.gft_adj_matmul.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i, f, p]
+        lib.gft_adj_matmul.restype = ctypes.c_int
+        lib.gft_sparse_adj.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+        lib.gft_sparse_adj.restype = ctypes.c_int
         _lib = lib
     return _lib

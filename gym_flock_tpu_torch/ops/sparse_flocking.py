@@ -24,9 +24,15 @@ Channel sets of K3 (layout of ``ops.flocking_sums``): ``"core"`` is 0-8;
 zero; ``"full"`` also sets 9 = min r^2 over the listed pairs (the reset's
 acceptance test only).
 
+K4 (``sparse_adj_sorted``) is K2's GNN aggregation ``(A @ H, degree)`` over
+the same kind of table; ``adjacency_matmul_sparse`` and
+``khop_aggregate_sparse`` run it in agent order, differentiably, with the
+dense K2 pass for a batch whose table overflows.
+
 Dispatch is by the device of the input: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel (``csrc/sparse_sums.cu``, built
-at first use) or raises, any other device raises.
+version, a CUDA tensor launches the kernel (``csrc/sparse_sums.cu`` and
+``csrc/sparse_adj.cu``, built at first use) or raises, any other device
+raises.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import dataclasses
 
 import torch
 
+from gym_flock_tpu_torch.ops import adjacency_matmul as k2
 from gym_flock_tpu_torch.ops import flocking_sums as k1
 from gym_flock_tpu_torch.ops.flocking_sums import N_OUT
 
@@ -50,6 +57,10 @@ __all__ = [
     "verlet_build",
     "flocking_sums_sparse_verlet",
     "sparse_reset_accept",
+    "sparse_adj_sorted",
+    "sparse_adj_sorted_reference",
+    "adjacency_matmul_sparse",
+    "khop_aggregate_sparse",
 ]
 
 BLOCK = 128
@@ -64,6 +75,11 @@ launches = 0  # K3 kernel launches in this process; only _launch adds to it
 # that overflowed the table and ran on K1 instead, and Verlet rebuilds
 overflow_passes = 0
 verlet_rebuilds = 0
+adj_launches = 0  # K4 kernel launches in this process; only _launch_adj adds to it
+adj_backward_launches = 0  # those of them made for a backward pass
+# adjacency passes (forward or backward) whose table overflowed, so that they
+# ran on dense K2 instead of K4
+adj_overflow_passes = 0
 
 
 def _f32(value, device) -> torch.Tensor:
@@ -416,3 +432,191 @@ def sparse_reset_accept(
     degree = s[..., 8].amin(dim=-1)
     min_dist = torch.sqrt(s[..., 9].amin(dim=-1))
     return (degree >= 2) & (min_dist > min_dist_thresh)
+
+
+# ------------------------------------------------------------------ K4
+
+
+def sparse_adj_sorted_reference(xs: torch.Tensor, hs: torch.Tensor, table: torch.Tensor,
+                                comm_radius2):
+    """The plain PyTorch version of K4 on sorted operands: ``(out [B, N, F]
+    in hs's dtype, deg [B, N] f32)``.
+
+    Follows ``_sparse_adj_xla`` (``gym_flock_tpu/ops/sparse_flocking.py:786-828``):
+    a loop over the table's slots, each gathering whole 128-agent column
+    blocks; a pad slot adds nothing, and the self pair is "same block, same
+    lane".  The adjacency is formed in f32; the products accumulate in f64,
+    as the CUDA kernel's do, and are rounded to f32 once.
+    """
+    b, n, _ = xs.shape
+    n_b, k_max, f = n // BLOCK, table.shape[-1], hs.shape[-1]
+    dev = xs.device
+    cr2 = _f32(comm_radius2, dev)
+    pos = xs[..., :2].reshape(b, n_b, BLOCK, 2)
+    hb = hs.to(torch.float64).reshape(b, n_b, BLOCK, f)
+    eye = torch.eye(BLOCK, dtype=torch.bool, device=dev)
+    bidx = torch.arange(b, device=dev)[:, None]
+    row_blk = torch.arange(n_b, device=dev)
+    out = torch.zeros(b, n_b, BLOCK, f, dtype=torch.float64, device=dev)
+    deg = torch.zeros(b, n_b, BLOCK, dtype=torch.float32, device=dev)
+    rows_per_chunk = max(1, _CHUNK_PAIRS // max(1, b * BLOCK * BLOCK))
+    for r0 in range(0, n_b, rows_per_chunk):
+        r1 = min(n_b, r0 + rows_per_chunk)
+        pr = pos[:, r0:r1]  # [B, r, 128, 2]
+        for s in range(k_max):
+            j = table[:, r0:r1, s].long()  # [B, r]
+            valid = (j >= 0)[..., None, None]
+            jc = j.clamp(min=0)
+            pc = pos[bidx, jc]  # [B, r, 128, 2]
+            dx = pc[..., None, :, 0] - pr[..., 0, None]
+            dy = pc[..., None, :, 1] - pr[..., 1, None]
+            r2 = dx * dx + dy * dy
+            self_pair = (j == row_blk[r0:r1])[..., None, None] & eye
+            adj = (r2 < cr2) & ~self_pair & valid
+            out[:, r0:r1] += torch.matmul(adj.to(torch.float64), hb[bidx, jc])
+            deg[:, r0:r1] += adj.sum(dim=-1).to(torch.float32)
+    return out.reshape(b, n, f).to(torch.float32).to(hs.dtype), deg.reshape(b, n)
+
+
+def _check_adj_inputs(xs, hs, table):
+    if not all(isinstance(t, torch.Tensor) for t in (xs, hs, table)):
+        raise TypeError("xs, hs and table must be torch.Tensors")
+    if xs.dtype != torch.float32:
+        raise TypeError(f"xs must be float32, got {xs.dtype}")
+    if not hs.is_floating_point() or hs.dtype == torch.float64:
+        raise TypeError(f"hs must be float32, bfloat16 or float16, got {hs.dtype}")
+    if table.dtype != torch.int32:
+        raise TypeError(f"table must be int32, got {table.dtype}")
+    if xs.dim() != 3 or xs.shape[-1] != 4 or xs.shape[1] % BLOCK != 0:
+        raise ValueError(f"xs must be [B, N, 4] with N a multiple of {BLOCK}, got "
+                         f"{tuple(xs.shape)}")
+    b, n, _ = xs.shape
+    if hs.dim() != 3 or hs.shape[:2] != (b, n) or hs.shape[-1] == 0:
+        raise ValueError(f"hs must be [{b}, {n}, F] with F >= 1, got {tuple(hs.shape)}")
+    if table.dim() != 3 or table.shape[:2] != (b, n // BLOCK):
+        raise ValueError(f"table must be [{b}, {n // BLOCK}, k], got {tuple(table.shape)}")
+    if not (xs.is_contiguous() and hs.is_contiguous() and table.is_contiguous()):
+        raise ValueError("xs, hs and table must be contiguous")
+    if not xs.device == hs.device == table.device:
+        raise ValueError(f"xs, hs and table lie on {xs.device}, {hs.device}, {table.device}")
+
+
+def _launch_adj(xs, hs, table, comm_radius2, backward):
+    global adj_launches, adj_backward_launches
+    from gym_flock_tpu_torch.ops import _build
+
+    b, n, _ = xs.shape
+    f = hs.shape[-1]
+    if b > _MAX_GRID_Y or -(-f // 8) > _MAX_GRID_Y:
+        raise ValueError(f"batch {b} or F={f} exceeds the kernel grid's limit {_MAX_GRID_Y}")
+    if xs.data_ptr() % 16 != 0:
+        raise ValueError("xs must be 16-byte aligned (the kernel reads float4 rows)")
+    hs32 = hs if hs.dtype == torch.float32 else hs.to(torch.float32)
+    out = torch.empty(b, n, f, dtype=torch.float32, device=xs.device)
+    deg = torch.empty(b, n, dtype=torch.float32, device=xs.device)
+    if b and n:
+        lib = _build.load()
+        with torch.cuda.device(xs.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.gft_sparse_adj(
+                xs.data_ptr(), hs32.data_ptr(), table.data_ptr(), out.data_ptr(),
+                deg.data_ptr(), b, n, table.shape[-1], f, float(comm_radius2), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"K4 (sparse_adj) launch failed: CUDA error {rc}")
+        adj_launches += 1
+        adj_backward_launches += int(backward)
+    return out.to(hs.dtype), deg
+
+
+def _sparse_adj(xs, hs, table, comm_radius2, backward=False):
+    _check_adj_inputs(xs, hs, table)
+    device = xs.device.type
+    if device == "cpu":
+        return sparse_adj_sorted_reference(xs, hs, table, comm_radius2)
+    if device == "cuda":
+        return _launch_adj(xs, hs, table, comm_radius2, backward)
+    raise ValueError(f"sparse_adj_sorted runs on cpu or cuda, not {device}")
+
+
+def sparse_adj_sorted(xs: torch.Tensor, hs: torch.Tensor, table: torch.Tensor, comm_radius2):
+    """K4: ``(A @ hs, degree)`` over the block pairs that ``table`` lists.
+
+    ``xs`` is ``[B, N, 4]`` f32 in curve order, ``hs`` ``[B, N, F]`` in the
+    same order, ``table`` ``[B, n_b, k]`` int32 with -1 pads.  Returns
+    ``(out [B, N, F] in hs's dtype, deg [B, N] f32)``, sorted.  The contract
+    of ``_sparse_adj_pallas`` in the JAX package.
+    """
+    return _sparse_adj(xs, hs, table, comm_radius2)
+
+
+def _adj_pass(x, h, perm, table, dense, comm_radius2, backward):
+    """One raw ``(A(x) @ h, degree)`` in agent order: K4 through the table,
+    or dense K2 over every pair where the table overflowed."""
+    global adj_overflow_passes
+    if dense:
+        adj_overflow_passes += 1
+        return k2._adj(x, x, h, 0, 0, comm_radius2, backward)
+    out, deg = _sparse_adj(permute(x, perm), permute(h, perm), table, comm_radius2, backward)
+    return unsort(out, perm), unsort(deg[..., None], perm)[..., 0]
+
+
+class _AdjacencyMatmulSparse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h, comm_radius2, mean_pool, k_max):
+        # the table at cr = sqrt(cr2) in f32, as the JAX package builds it
+        cr = torch.sqrt(_f32(comm_radius2, x.device))
+        perm = hilbert_order(x, cr)
+        table, overflow = block_pair_table(permute(x, perm), cr, k_max)
+        dense = bool(overflow.any())
+        out, deg = _adj_pass(x, h, perm, table, dense, comm_radius2, backward=False)
+        ctx.args = (dense, comm_radius2)
+        degc = torch.where(deg == 0, 1.0, deg)[..., None].to(out.dtype) if mean_pool else None
+        ctx.save_for_backward(x, perm, table, degc)
+        return out / degc if mean_pool else out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, perm, table, degc = ctx.saved_tensors
+        dense, comm_radius2 = ctx.args
+        dh = None
+        if ctx.needs_input_grad[1]:
+            if degc is not None:
+                dy = dy / degc
+            # A and the candidate relation are symmetric: the forward's table
+            # serves the transposed pass, dH = A dy
+            dh, _ = _adj_pass(x, dy.contiguous(), perm, table, dense, comm_radius2,
+                              backward=True)
+        dx = torch.zeros_like(x) if ctx.needs_input_grad[0] else None
+        return dx, dh, None, None, None
+
+
+def adjacency_matmul_sparse(x: torch.Tensor, h: torch.Tensor, comm_radius2,
+                            mean_pool: bool = True, k_max: int = 16) -> torch.Tensor:
+    """Cell-list ``ops.adjacency_matmul``: ``A(x) @ h`` over the listed block
+    pairs only, ``x [B, N, 4]`` (N a multiple of 128), ``h [B, N, F]`` ->
+    ``[B, N, F]`` in h's dtype (``gym_flock_tpu/ops/sparse_flocking.py:831-1031``).
+
+    Sort, table at ``sqrt(comm_radius2)``, K4, scatter back; the pruning is
+    exact, so only the summation order differs from the dense pass.  If any
+    swarm overflows ``k_max``, the whole batch runs on dense K2 (one host
+    ``if``; counted in ``adj_overflow_passes``).  Differentiable in ``h``:
+    the backward reruns the same pass on ``dy`` (``dy / degc`` when
+    mean-pooled); the positions get a zero gradient.
+    """
+    _check_x(x)
+    return _AdjacencyMatmulSparse.apply(x.contiguous(), h.contiguous(), comm_radius2,
+                                        mean_pool, k_max)
+
+
+def khop_aggregate_sparse(x: torch.Tensor, features: torch.Tensor, comm_radius2, k_hops: int,
+                          mean_pool: bool = True, k_max: int = 16) -> torch.Tensor:
+    """``[X, AX, A^2 X, ...]`` through :func:`adjacency_matmul_sparse`: the
+    input pipeline of ``models.LargeAggregationGNN`` on cell-list swarms
+    (pass it as the model's ``aggregate_fn``)."""
+    zs = [features]
+    z = features
+    for _ in range(k_hops - 1):
+        z = adjacency_matmul_sparse(x, z, comm_radius2, mean_pool=mean_pool, k_max=k_max)
+        zs.append(z)
+    return torch.cat(zs, dim=-1)

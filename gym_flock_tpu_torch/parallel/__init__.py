@@ -1,1 +1,25 @@
-"""Rollout loops over batches of envs."""
+"""Rollout loops over batches of envs, and imitation training on them.
+
+The function ``rollout`` stays in its module: bound here, its name would
+hide the submodule ``parallel.rollout``.
+"""
+from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout, batch_rollout
+from gym_flock_tpu_torch.parallel.train import (
+    FlockingImitationTrainer,
+    LargeFlockingImitationTrainer,
+    collect_flocking_batch,
+    collect_large_flocking_batch,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = [
+    "batch_rollout",
+    "batch_expert_rollout",
+    "FlockingImitationTrainer",
+    "LargeFlockingImitationTrainer",
+    "collect_flocking_batch",
+    "collect_large_flocking_batch",
+    "save_checkpoint",
+    "restore_checkpoint",
+]
