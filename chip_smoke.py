@@ -11,12 +11,16 @@ Phases, each printing one line:
    and power limit as ``nvidia-smi`` reports them.
 2. build: compiles the CUDA kernels from ``gym_flock_tpu_torch/csrc``.
 3. K1 (``block_sums``) against its plain PyTorch version on the card, for
-   both channel sets at B=16/N=4096, B=8192/N=100, a ragged B=3/N=1000 and
-   a cross-block case with overlapping global ids.  Tolerances: the degree
+   both channel sets at B=16/N=4096, B=4/N=4096, B=8192/N=100, a ragged
+   B=3/N=1000, a cross-block case with overlapping global ids, a ragged
+   cross-block case (37 rows against 260 columns), and the edge-case swarms
+   of ``edge_swarms`` at comm radii 0.9 and 2.0.  Tolerances: the degree
    (channel 8) exactly, channel 9 (min r^2) within 1 ulp, every other sum
    channel max |k - p| / (1 + |p|) < 1e-4 (the 1/r^4 channels are large and
-   the summation orders differ); unused channels exactly zero.  Kernel and
-   plain times: median of 7 CUDA-event timings after a warm-up.
+   the summation orders differ); unused channels exactly zero; the
+   coincident pair's NaN sums in the same places.  Kernel and plain times
+   (median of 7 CUDA-event timings after a warm-up) at the main path's
+   shapes, each with its launch geometry and its bound.
 4. main path, ``FlockingLarge-v0`` (N=4096): ``batch_expert_rollout`` with
    B=16 and 16 steps.  K1 must have launched exactly once per reset draw,
    once for the reset's observation, once for the rollout's first pass and
@@ -44,7 +48,8 @@ Phases, each printing one line:
    (positions uniform over a square of side sqrt(N), velocities standard
    normal, drawn with numpy from a fixed seed) with the Verlet table the
    main path builds, and (c) a ragged table at N=1,024, B=3 (pad slots
-   first and past n_b).  K1's tolerances; channel 9 exactly 0 in
+   first and past n_b), and (d) the edge-case swarms at comm radii 0.9 and
+   2.0.  K1's tolerances; channel 9 exactly 0 in
    "expert".  At (b) the degree through ``flocking_sums_sparse`` must equal
    dense K1's (exact pruning).  K1 "core" against its plain version at (a),
    the shape of the overflow branch of phase 10's workload.  Kernel and
@@ -95,7 +100,10 @@ Phases, each printing one line:
    (N=100): 1024 envs x 8 steps, 5 updates.  K1 runs in the resets (one
    launch per draw); the aggregation is dense ``torch.matmul``.
 
-Then one JSON line describing each kernel, and as the last line
+Then one JSON line describing each kernel (its time, its plain version's,
+and its bound: the larger of the operations it must do over the f32 peak
+and the bytes it must move over the memory rate, counted from this run's
+inputs), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero before the last line; without a card it exits non-zero at once.
 """
@@ -127,6 +135,15 @@ CR2 = 0.9 * 0.9  # the flocking envs' comm_radius2
 # K2 and K4 against their plain versions: both sum in f64 and round to f32
 # once, so they may differ by one f32 rounding, ~1.2e-7 |p|
 ADJ_TOL = 1e-6
+# NVIDIA H100 SXM data sheet, at the full 700 W: f32 outside the tensor
+# cores, and HBM3
+F32_FLOPS = 67e12
+HBM_BYTES = 3.35e12
+# flops of K1's and K3's pair test (every pair) and of the body of a pair
+# within reach (r2 < cr2 or r2 <= cr): the divide, the terms, the sums
+PAIR_TEST_FLOPS = 5
+PAIR_BODY_FLOPS = 30
+EDGE_CASES = ("band", "all in reach", "none in reach", "coincident pair")
 
 
 def _sync():
@@ -190,6 +207,145 @@ def compare_sums(got, want, channels: str) -> dict:
     return {"rel": rel, "ulp9": ulp, "abs": abs_err}
 
 
+def compare_nan_sums(got, want) -> dict:
+    """Hold a result with NaN sums (coincident agents) against the plain
+    one: NaN in the same places, the degree exactly, the finite sums within
+    SUM_TOL."""
+    import torch
+
+    if not bool(want.isnan().any()):
+        raise AssertionError("the plain result has no NaN: the coincident pair was not in reach")
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError("NaN sums in other places than the plain version's")
+    if not torch.equal(got[..., 8], want[..., 8]):
+        raise AssertionError("degree (channel 8) differs")
+    finite = ~want.isnan()
+    g, w = got[finite], want[finite]
+    rel = float(((g - w).abs() / (1.0 + w.abs())).max())
+    if not rel < SUM_TOL:
+        raise AssertionError(f"finite sums: max |k-p|/(1+|p|) = {rel:.3e} >= {SUM_TOL}")
+    return {"rel": rel, "ulp9": 0, "abs": float((g - w).abs().max())}
+
+
+def edge_swarms(name: str, cr: float, seed: int = SEED):
+    """An edge case of K1's and K3's pair test at comm radius ``cr``:
+    ``[2, N, 4]`` f32 numpy, N a multiple of 128, velocities standard
+    normal.
+
+    * "band": equilateral triangles 10 apart whose sides have r^2 strictly
+      between cr and cr^2, so that every pair in reach has adj = 0 and
+      gfac != 0 (cr < 1) or adj = 1 and gfac = 0 (cr > 1);
+    * "all in reach": every agent within a disk of radius 0.1 (N=128);
+    * "none in reach": a grid of spacing 3 jittered by up to 0.2 (r^2 > 6.7);
+    * "coincident pair": "band" with agent 1 moved onto agent 0 (r^2 = 0,
+      NaN sums in both swarms' rows 0-2).
+    """
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    b, n = (2, 128) if name == "all in reach" else (2, 256)
+    x = np.empty((b, n, 4), np.float32)
+    x[..., 2:] = rng.standard_normal((b, n, 2))
+    if name == "all in reach":
+        r = 0.1 * np.sqrt(rng.uniform(0.0, 1.0, (b, n)))
+        a = rng.uniform(0.0, 2 * np.pi, (b, n))
+        x[..., 0], x[..., 1] = r * np.cos(a), r * np.sin(a)
+        return x
+    side = math.ceil(math.sqrt(n))
+    grid = np.stack(np.divmod(np.arange(side * side), side), axis=-1)[:, ::-1].astype(np.float64)
+    if name == "none in reach":
+        x[..., :2] = 3.0 * grid[:n] + rng.uniform(-0.2, 0.2, (b, n, 2))
+        return x
+    lo, hi = sorted((cr, cr * cr))
+    tri = n // 3
+    s2 = rng.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), (b, tri))
+    a = rng.uniform(0.0, 2 * np.pi, (b, tri))[..., None] + np.arange(3) * (2 * np.pi / 3)
+    corner = np.sqrt(s2 / 3.0)[..., None, None] * np.stack((np.cos(a), np.sin(a)), axis=-1)
+    x[:, :3 * tri, :2] = (10.0 * grid[:tri, None] + corner).reshape(b, 3 * tri, 2)
+    x[:, 3 * tri:, :2] = 10.0 * grid[tri:tri + n - 3 * tri]  # single agents
+    if name == "coincident pair":
+        x[:, 1, :2] = x[:, 0, :2]
+    return x
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    operations over the f32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of distinct tensors, each counted once."""
+    seen = {}
+    for t in tensors:
+        seen[(t.data_ptr(), t.numel())] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def k1_pair_counts(xr, xc, ro: int, co: int, cr, cr2) -> tuple:
+    """``(pairs, pairs within reach)`` of K1 on these operands: the pairs of
+    distinct global ids, and those with r2 < cr2 or not r2 > cr."""
+    import torch
+
+    b, m, _ = xr.shape
+    k = xc.shape[1]
+    col_ids = co + torch.arange(k, device=xr.device)
+    rows = max(1, (1 << 25) // max(1, b * k))
+    pairs = hits = 0
+    for r0 in range(0, m, rows):
+        xs = xr[:, r0:r0 + rows]
+        dx = xs[..., 0, None] - xc[:, None, :, 0]
+        dy = xs[..., 1, None] - xc[:, None, :, 1]
+        r2 = dx * dx + dy * dy
+        other = (ro + r0 + torch.arange(xs.shape[1], device=xr.device))[:, None] != col_ids
+        pairs += b * int(other.sum())
+        hits += int((((r2 < cr2) | ~(r2 > cr)) & other).sum())
+    return pairs, hits
+
+
+def k3_pair_counts(xs, table, cr, cr2) -> tuple:
+    """``(listed pairs, listed pairs within reach)`` of K3 on these sorted
+    operands, the self pairs excluded."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+
+    b, n, _ = xs.shape
+    blk = sf.BLOCK
+    pos = xs[..., :2].reshape(b, n // blk, blk, 2)
+    bidx = torch.arange(b, device=xs.device)[:, None]
+    rows = torch.arange(n // blk, device=xs.device)
+    eye = torch.eye(blk, dtype=torch.bool, device=xs.device)
+    pairs = hits = 0
+    for s in range(table.shape[-1]):
+        j = table[..., s].long()
+        valid = (j >= 0)[..., None, None]
+        pc = pos[bidx, j.clamp(min=0)]
+        dx = pos[..., 0, None] - pc[..., None, :, 0]
+        dy = pos[..., 1, None] - pc[..., None, :, 1]
+        r2 = dx * dx + dy * dy
+        keep = valid & ~((j == rows)[..., None, None] & eye)
+        pairs += int(keep.sum())
+        hits += int((((r2 < cr2) | ~(r2 > cr)) & keep).sum())
+    return pairs, hits
+
+
+def warps_per_sm(blocks: int, threads: int) -> float:
+    """Warps a launch puts on each SM of the card, on average."""
+    import torch
+
+    return blocks * threads / 32 / torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def pair_bound(pairs: int, hits: int, nbytes_moved: int) -> dict:
+    """K1's and K3's bound: the test on every pair, the body on those
+    within reach."""
+    return {"pairs": pairs, "pairs_in_reach": hits,
+            **bound(PAIR_TEST_FLOPS * pairs + PAIR_BODY_FLOPS * hits, nbytes_moved)}
+
+
 def draw_swarms(n_envs: int, n_agents: int, device: str, seed: int):
     """Swarms drawn as the reset draws them (positions over the disk of
     radius sqrt(sqrt(N)), velocities up to +-10)."""
@@ -201,9 +357,11 @@ def draw_swarms(n_envs: int, n_agents: int, device: str, seed: int):
     return FlockingRelativeEnv()._draw(gen, FlockingParams(n_agents=n_agents), n_envs)
 
 
-def phase_kernel_check(device: str, shapes) -> dict:
+def phase_kernel_check(device: str, shapes, timed) -> dict:
     """Phase 3: K1 against the plain version for each case; returns the
-    worst errors and the timings."""
+    worst errors and the timings at the ``(B, N, channels)`` of ``timed``."""
+    import torch
+
     from gym_flock_tpu_torch.ops import flocking_sums as k1
 
     cr = 0.9
@@ -212,26 +370,44 @@ def phase_kernel_check(device: str, shapes) -> dict:
     cases = []
     for b, n in shapes:
         x = draw_swarms(b, n, device, SEED + n)
-        cases.append((f"B={b},N={n}", x, x, 0, 0))
+        cases.append((f"B={b},N={n}", x, x, 0, 0, cr))
     # cross block: rows are agents 0..699, columns 300..999 of the same swarm,
     # so ids 300..699 appear on both sides and their self pairs must drop
     x = draw_swarms(3, 1000, device, SEED + 1)
     cases.append(("cross B=3,rows 0-699,cols 300-999",
-                  x[:, :700].contiguous(), x[:, 300:].contiguous(), 0, 300))
-    for name, xr, xc, ro, co in cases:
+                  x[:, :700].contiguous(), x[:, 300:].contiguous(), 0, 300, cr))
+    # ragged cross block: 37 rows against 260 columns, ids 5..36 on both sides
+    cases.append(("cross B=3,rows 0-36,cols 5-264",
+                  x[:, :37].contiguous(), x[:, 5:265].contiguous(), 0, 5, cr))
+    for radius in (0.9, 2.0):
+        for name in EDGE_CASES:
+            xe = torch.from_numpy(edge_swarms(name, radius)).to(device)
+            cases.append((f"{name} cr={radius}", xe, xe, 0, 0, radius))
+    for name, xr, xc, ro, co, radius in cases:
         for channels in ("core", "full"):
-            got = k1.flocking_sums_block(xr, xc, ro, co, cr, cr2, channels=channels)
-            want = k1.flocking_sums_block_reference(xr, xc, ro, co, cr, cr2, channels)
+            got = k1.flocking_sums_block(xr, xc, ro, co, radius, radius * radius,
+                                         channels=channels)
+            want = k1.flocking_sums_block_reference(xr, xc, ro, co, radius, radius * radius,
+                                                    channels)
             _sync()
-            err = compare_sums(got, want, channels)
+            if name.startswith("coincident"):
+                err = compare_nan_sums(got, want)
+            else:
+                err = compare_sums(got, want, channels)
             worst = {k: max(worst[k], err[k]) for k in worst}
     timings = []
-    for b, n in shapes[:2]:
+    for b, n, channels in timed:
         x = draw_swarms(b, n, device, SEED + n)
-        ms = time_ms(lambda: k1.flocking_sums_block(x, x, 0, 0, cr, cr2, channels="core"))
-        plain = time_ms(lambda: k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr2, "core"))
-        timings.append({"B": b, "N": n, "channels": "core", "ms": ms, "plain_ms": plain,
-                        "gpairs_per_s": b * n * n / (ms * 1e6)})
+        ms = time_ms(lambda: k1.flocking_sums_block(x, x, 0, 0, cr, cr2, channels=channels))
+        plain = time_ms(lambda: k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr2, channels))
+        blocks, threads, groups = k1.launch_grid(b, n, n)
+        pairs, hits = k1_pair_counts(x, x, 0, 0, cr, cr2)
+        timings.append({"B": b, "N": n, "channels": channels, "ms": ms, "plain_ms": plain,
+                        "gpairs_per_s": b * n * n / (ms * 1e6),
+                        "blocks": blocks, "threads": threads, "groups": groups,
+                        "warps_per_sm": warps_per_sm(blocks, threads),
+                        **pair_bound(pairs, hits, nbytes(x) + b * n * 16 * 4),
+                        "library_ms": None})
     return {"worst": worst, "cases": len(cases) * 2, "timings": timings}
 
 
@@ -376,20 +552,29 @@ def phase_sparse_kernel_check(device: str, shapes) -> dict:
         vs = sf.verlet_build(x, cr, cr)
         if bool(vs.overflow.any()):
             raise AssertionError(f"the B={b}, N={n} table overflows k_max")
-        cases.append((f"B={b},N={n}", sf.permute(x, vs.perm), vs.table))
+        cases.append((f"B={b},N={n}", sf.permute(x, vs.perm), vs.table, cr))
         states.append(x)
     x = bench_state(3, 1024, SEED + 3, device)
     xs = sf.permute(x, sf.hilbert_order(x, cr))
     table, _ = sf.block_pair_table(xs, cr, 16)
     ragged = torch.cat([table.flip(-1), torch.full_like(table[..., :3], -1)], dim=-1)
-    cases.append(("ragged B=3,N=1024", xs, ragged.contiguous()))
+    cases.append(("ragged B=3,N=1024", xs, ragged.contiguous(), cr))
+    for radius in (0.9, 2.0):
+        for name in EDGE_CASES:
+            x = torch.from_numpy(edge_swarms(name, radius)).to(device)
+            xs = sf.permute(x, sf.hilbert_order(x, radius))
+            cases.append((f"{name} cr={radius}", xs, sf.block_pair_table(xs, radius, 16)[0],
+                          radius))
     worst = {"rel": 0.0, "ulp9": 0, "abs": 0.0}
-    for name, xs, table in cases:
+    for name, xs, table, radius in cases:
         for channels in ("core", "expert", "full"):
-            got = sf.sparse_sums_sorted(xs, table, cr, cr2, channels)
-            want = sf.sparse_sums_sorted_reference(xs, table, cr, cr2, channels)
+            got = sf.sparse_sums_sorted(xs, table, radius, radius * radius, channels)
+            want = sf.sparse_sums_sorted_reference(xs, table, radius, radius * radius, channels)
             _sync()
-            err = compare_sums(got, want, channels)
+            if name.startswith("coincident"):
+                err = compare_nan_sums(got, want)
+            else:
+                err = compare_sums(got, want, channels)
             worst = {k: max(worst[k], err[k]) for k in worst}
 
     # exact pruning: the degree through the whole pipeline equals dense K1's
@@ -412,7 +597,7 @@ def phase_sparse_kernel_check(device: str, shapes) -> dict:
     _sync()
 
     timings = []
-    for (name, xs, table), x in zip(cases[:2], states):
+    for (name, xs, table, _), x in zip(cases[:2], states):
         b, n, _ = xs.shape
         pairs = int((table >= 0).sum()) * sf.BLOCK * sf.BLOCK
         res = {"case": name, "B": b, "N": n, "channels": "core",
@@ -422,6 +607,12 @@ def phase_sparse_kernel_check(device: str, shapes) -> dict:
         res["plain_ms"] = time_ms(
             lambda: sf.sparse_sums_sorted_reference(xs, table, cr, cr2, "core"))
         res["gpairs_per_s"] = pairs / (res["ms"] * 1e6)
+        blocks, threads, groups = sf.launch_grid(b, n, table.shape[-1])
+        res.update(blocks=blocks, threads=threads, groups=groups,
+                   warps_per_sm=warps_per_sm(blocks, threads))
+        res.update(pair_bound(*k3_pair_counts(xs, table, cr, cr2),
+                              nbytes(xs, table) + b * n * 16 * 4))
+        res["library_ms"] = None
         if b == 1:
             res["dense_k1_ms"] = time_ms(lambda: k1.flocking_sums(x, cr, cr2))
         timings.append(res)
@@ -639,7 +830,12 @@ def phase_rowmin_check(device: str, banks) -> dict:
         res["plain_ms"] = time_ms(lambda: k5.packed_greedy_min_reference(*args))
         # bytes the kernel must read: the gathered cost rows and the mask
         b, r = args[0].shape
-        res["GB_per_s"] = (b * r * args[2].shape[1] * 2 + args[1].numel()) / (res["ms"] * 1e6)
+        rows = b * r * args[2].shape[1]
+        res["GB_per_s"] = (rows * 2 + args[1].numel()) / (res["ms"] * 1e6)
+        # its bound: those bytes, the row indices and the packed result; two
+        # operations (compare, select) an element
+        res.update(bound(2 * rows, rows * 2 + nbytes(args[0], args[1]) + b * r * 4))
+        res["library_ms"] = None
     return {"cases": results, "max_abs_err": max(r["max_abs_err"] for r in results)}
 
 
@@ -862,10 +1058,17 @@ def phase_adj_check(device: str, b: int, n: int, f: int) -> dict:
 
     ms = time_ms(lambda: k2.adjacency_matmul_block(x, x, h, 0, 0, CR2))
     plain = time_ms(lambda: k2.adjacency_matmul_block_reference(x, x, h, 0, 0, CR2))
+    # its bound: the test on every pair, 2F+1 flops a neighbour pair; x and
+    # h read, the sums and the degree written
+    neighbours = int(want_deg.sum())
     return {"max_rel": err.rel, "max_abs_err": err.abs,
             "backward_launches": backward, "mean_degree": mean_deg,
             "timing": {"case": f"B={b},N={n},F={f}", "ms": ms, "plain_ms": plain,
-                       "gpairs_per_s": b * n * n / (ms * 1e6)}}
+                       "gpairs_per_s": b * n * n / (ms * 1e6),
+                       "pairs": b * n * n, "pairs_in_reach": neighbours,
+                       **bound(PAIR_TEST_FLOPS * b * n * n + (2 * f + 1) * neighbours,
+                               nbytes(x, h) + b * n * (f + 1) * 4),
+                       "library_ms": None}}
 
 
 def phase_sparse_adj_check(device: str, shapes, **reset_overrides) -> dict:
@@ -899,6 +1102,11 @@ def phase_sparse_adj_check(device: str, shapes, **reset_overrides) -> dict:
             res["plain_ms"] = time_ms(lambda: sf.sparse_adj_sorted_reference(xs, hs, table,
                                                                              CR2))
             res["gpairs_per_s"] = pairs / (res["ms"] * 1e6)
+            neighbours = int(want_deg.sum())
+            res["pairs_in_reach"] = neighbours
+            res.update(bound(PAIR_TEST_FLOPS * pairs + (2 * hs.shape[-1] + 1) * neighbours,
+                             nbytes(xs, hs, table) + b * n * (hs.shape[-1] + 1) * 4))
+            res["library_ms"] = None
             timings.append(res)
 
     # (a) and (b) on phase 9's states (bench metric 4's), F=6: the table the
@@ -1184,12 +1392,14 @@ def main() -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     regs = "; ".join(line.strip() for line in _build.build_log.splitlines()
-                     if "registers" in line)
+                     if "registers" in line or "spill" in line or "Compiling entry" in line)
     print(f"phase 2 build: {build_s:.2f} s ({_build.library_path().name}) {regs}")
     _sync()
 
     # 3. K1 against its plain version
-    k = phase_kernel_check(device, [(16, 4096), (8192, 100), (3, 1000)])
+    k = phase_kernel_check(device, [(16, 4096), (4, 4096), (8192, 100), (3, 1000)],
+                           [(16, 4096, "core"), (4, 4096, "full"), (8192, 100, "full"),
+                            (8192, 100, "core")])
     _sync()
     print("phase 3 K1 vs plain: " + json.dumps(k))
 
@@ -1294,6 +1504,9 @@ def main() -> int:
                            sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": None,
         "timings": k["timings"],
     }, {
         "name": "rowmin",
@@ -1304,6 +1517,9 @@ def main() -> int:
         "max_abs_err": k5r["max_abs_err"],
         "ms": k5_big["ms"],
         "plain_ms": k5_big["plain_ms"],
+        "bound_ms": k5_big["bound_ms"],
+        "bound_by": k5_big["bound_by"],
+        "library_ms": None,
         "timings": k5r["cases"][:2],
     }, {
         "name": "sparse_sums",
@@ -1314,6 +1530,9 @@ def main() -> int:
         "max_abs_err": k3["worst"]["abs"],
         "ms": k3_big["ms"],
         "plain_ms": k3_big["plain_ms"],
+        "bound_ms": k3_big["bound_ms"],
+        "bound_by": k3_big["bound_by"],
+        "library_ms": None,
         "timings": k3["timings"],
     }, {
         "name": "adj_matmul",
@@ -1326,6 +1545,9 @@ def main() -> int:
         "max_abs_err": a2["max_abs_err"],
         "ms": a2["timing"]["ms"],
         "plain_ms": a2["timing"]["plain_ms"],
+        "bound_ms": a2["timing"]["bound_ms"],
+        "bound_by": a2["timing"]["bound_by"],
+        "library_ms": None,
         "timings": [a2["timing"]],
     }, {
         "name": "sparse_adj",
@@ -1338,6 +1560,9 @@ def main() -> int:
         "max_abs_err": a4["max_abs_err"],
         "ms": k4_big["ms"],
         "plain_ms": k4_big["plain_ms"],
+        "bound_ms": k4_big["bound_ms"],
+        "bound_by": k4_big["bound_by"],
+        "library_ms": None,
         "timings": a4["timings"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,147 +11,147 @@
 // The cutoff of gfac compares r2 with the UNSQUARED radius cr, as the
 // reference does.  Output [B,m,16] f32; unused channels are written as zeros.
 //
-// What bounds it: f32 divide and FMA throughput, at about 30 flops and one
-// IEEE divide per pair; it reads O(N) bytes per swarm (each column tile once
-// per 128 rows).  wgmma and TMA do not apply: there is no matrix product and
-// few bytes.  The later speed-up is occupancy, several rows per thread
-// (register tiling, so that each staged column feeds more pairs), and rcp in
-// place of the IEEE divide.
+// What bounds it: the pair test, about 8 instructions on every pair (5
+// flops), and the body (one IEEE divide, ~30 flops, 8 or 10 f32->f64
+// conversions and f64 adds) on the few pairs within reach: ~1.4% of
+// FlockingLarge's draws, ~8% of FlockingRelative's.  Run on every pair, the
+// divide and the conversions (16 a clock on an SM, against 128 f32
+// operations) would set the time; on the hits only, the test leads, and at
+// N=100 the body still does (a warp runs it as often as its busiest lane
+// has hits).  It reads O(N) bytes per swarm.  wgmma and TMA do not apply:
+// there is no matrix product and few bytes.
 //
-// Design.  Grid (ceil(m/128), B), 128 threads; each thread owns one row
-// agent and keeps its accumulators in registers.  The block walks over
-// column tiles of xc staged in shared memory as SoA px,py,vx,vy: this loop
-// replaces the TPU's sequential column grid axis.  No atomics, so the result
+// Design (the pair loop is csrc/flocking_pairs.cuh): a warp owns 32 row
+// agents, one a lane, and walks column tiles of 128 agents, each staged in
+// shared memory by cp.async, double-buffered: a test pass over every pair
+// sets a hit mask, a body pass runs K1's arithmetic on the hits only.  The
+// tiles of a row warp are split round-robin across `groups` warps of the
+// block when the batch is too small to fill the card (B=4 at N=4096 runs 8
+// groups); the groups' partials are added in group order in shared memory.
+// Grid (ceil(row warps / row warps a block), B).  No atomics, so the result
 // is deterministic; channel 9 is a running fminf.
 // * The self pair (equal global ids) is skipped: the Pallas kernel's
 //   r2 := inf, zero in every sum and absent from the min.
-// * The ragged edge is masked by bounds (no far-away padding agents).  A row
-//   with no other agent gets channel 9 = +inf.
+// * The ragged edge is masked by bounds and by +inf padding columns (no
+//   far-away finite padding agents).  A row with no other agent gets
+//   channel 9 = +inf.
 // * r2 is formed with __fmul_rn/__fadd_rn, so no FMA contraction moves it
 //   across the radius: the degree equals the plain version's exactly.  The
 //   divide stays IEEE (built without --use_fast_math, -prec-div=true).
-// * Two distinct agents at r2 = 0 give NaN (0 * inf), as in JAX.
+// * Two distinct agents at r2 = 0 give NaN (0 * inf), as in JAX.  Inputs are
+//   finite positions and velocities; a skipped pair adds exact zeros only
+//   then.
 // * Each pair term is formed in f32 as in the JAX kernel; the sums
 //   accumulate in f64.  At N=4096 two f32 summation orders of the 1/r^4
 //   channels differ by up to 7e-5 relative to (1 + |sum|), too close to the
 //   1e-4 bound the kernel is held to.
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "flocking_pairs.cuh"
 
 namespace {
 
-constexpr int kRows = 128;  // threads per block, one row agent each
-constexpr int kTile = 128;  // column agents staged per shared-memory tile
-constexpr int kOut = 16;    // output channels per agent
+using gft::kTile;
+using gft::kWarp;
+
+// K1's tiles: the column range in order, tiles g, g + groups, ...
+struct ColumnTiles {
+  const float4* xc;  // this swarm's columns
+  int k;
+  int group;
+  int groups;
+  long long self_j;  // local column index of the row's own global id
+  long long self_first;  // ... of the warp's first row
+  int rows;              // the warp's rows (lanes past m have none)
+
+  __device__ int first() const { return group; }
+  __device__ int next(int it) const { return it + groups; }
+  __device__ bool valid(int it) const { return it < (k + kTile - 1) / kTile; }
+  __device__ const float4* src(int it) const { return xc + static_cast<size_t>(it) * kTile; }
+  __device__ int cols(int it) const { return min(kTile, k - it * kTile); }
+  __device__ int self(int it) const {
+    const long long d = self_j - static_cast<long long>(it) * kTile;
+    return (d >= 0 && d < kTile) ? static_cast<int>(d) : -1;
+  }
+  // the warp's own columns are consecutive: does tile it hold one of them?
+  __device__ bool any_self(int it) const {
+    const long long d = self_first - static_cast<long long>(it) * kTile;
+    return d < kTile && d + rows > 0;
+  }
+};
 
 template <bool kFull>
-__global__ void __launch_bounds__(kRows)
-block_sums_kernel(const float* __restrict__ xr, const float* __restrict__ xc,
-                  float* __restrict__ out, int m, int k, int row_offset,
-                  int col_offset, float cr, float cr2) {
-  __shared__ float spx[kTile], spy[kTile], svx[kTile], svy[kTile];
+__global__ void __launch_bounds__(gft::kMaxThreads, 4)
+block_sums_kernel(const float4* __restrict__ xr, const float4* __restrict__ xc,
+                  float4* __restrict__ out, int m, int k, int row_offset, int col_offset,
+                  float cr, float cr2, float cut, int groups) {
+  extern __shared__ float4 smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int group = warp % groups;
+  const int row_warps = blockDim.x / (kWarp * groups);
+  const int row0 = (blockIdx.x * row_warps + warp / groups) * kWarp;
   const int b = blockIdx.y;
-  const int i = blockIdx.x * kRows + threadIdx.x;
+  const int i = row0 + lane;
   const bool active = i < m;
-  // local column index of this row's own global id (may lie outside [0, k))
-  const long long self_j =
-      static_cast<long long>(row_offset) + i - static_cast<long long>(col_offset);
 
-  float px = 0.f, py = 0.f, vx = 0.f, vy = 0.f;
-  if (active) {
-    const float* r = xr + (static_cast<size_t>(b) * m + i) * 4;
-    px = r[0];
-    py = r[1];
-    vx = r[2];
-    vy = r[3];
+  gft::PairSums<kFull, kFull> acc;
+  if (row0 < m) {  // warp-uniform
+    const float4 me = active ? xr[static_cast<size_t>(b) * m + i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const long long self_first = static_cast<long long>(row_offset) + row0 - col_offset;
+    const ColumnTiles seq{xc + static_cast<size_t>(b) * k, k, group, groups,
+                          self_first + lane, self_first, min(kWarp, m - row0)};
+    gft::run_tiles(acc, me, active, smem + warp * gft::kWarpSmem, lane, seq, cr, cr2, cut);
   }
-  const float* xcb = xc + static_cast<size_t>(b) * k * 4;
+  gft::combine_and_store(acc, smem, warp, group, groups, lane,
+                         active ? out + (static_cast<size_t>(b) * m + i) * (gft::kOut / 4)
+                                : nullptr);
+}
 
-  double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0, s4 = 0.0, s5 = 0.0;
-  double s6 = 0.0, s7 = 0.0, s10 = 0.0, s11 = 0.0;
-  int deg = 0;
-  float rmin = CUDART_INF_F;
+gft::Plan block_sums_plan(int b, int m, int k) {
+  return gft::plan_split(b, (m + kWarp - 1) / kWarp, (k + kTile - 1) / kTile);
+}
 
-  for (int j0 = 0; j0 < k; j0 += kTile) {
-    const int jl = j0 + threadIdx.x;
-    if (jl < k) {
-      const float* c = xcb + static_cast<size_t>(jl) * 4;
-      spx[threadIdx.x] = c[0];
-      spy[threadIdx.x] = c[1];
-      svx[threadIdx.x] = c[2];
-      svy[threadIdx.x] = c[3];
-    }
-    __syncthreads();
-    const int nt = min(kTile, k - j0);
-    if (active) {
-      for (int t = 0; t < nt; ++t) {
-        if (j0 + t == self_j) continue;
-        const float dx = px - spx[t];
-        const float dy = py - spy[t];
-        const float dvx = vx - svx[t];
-        const float dvy = vy - svy[t];
-        const float r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        const float adj = r2 < cr2 ? 1.0f : 0.0f;
-        const float inv = 1.0f / r2;
-        const float inv2 = inv * inv;
-        const float gfac = r2 > cr ? 0.0f : 2.0f * inv * (1.0f - inv);
-        const float gx = dx * gfac;
-        const float gy = dy * gfac;
-        s0 += dvx * adj;
-        s1 += dx * inv2 * adj;
-        s2 += dx * inv * adj;
-        s3 += dvy * adj;
-        s4 += dy * inv2 * adj;
-        s5 += dy * inv * adj;
-        s6 += gx;
-        s7 += gy;
-        deg += r2 < cr2;
-        if (kFull) {
-          rmin = fminf(rmin, r2);
-          s10 += gx * adj;
-          s11 += gy * adj;
-        }
-      }
-    }
-    __syncthreads();
+// Launches K1 with the geometry `p`; returns cudaGetLastError().
+int launch_block_sums(const void* xr, const void* xc, void* out, int b, int m, int k,
+                      int row_offset, int col_offset, float cr, float cr2, int full,
+                      const gft::Plan& p, void* stream) {
+  const int row_warps = (m + kWarp - 1) / kWarp;
+  const dim3 grid((row_warps + p.row_warps - 1) / p.row_warps, b);
+  const int threads = p.warps() * kWarp;
+  const size_t smem = p.smem_bytes();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* r = static_cast<const float4*>(xr);
+  const float4* c = static_cast<const float4*>(xc);
+  float4* o = static_cast<float4*>(out);
+  const float cut = gft::hit_cut(cr, cr2);
+  if (full) {
+    block_sums_kernel<true><<<grid, threads, smem, s>>>(r, c, o, m, k, row_offset, col_offset,
+                                                        cr, cr2, cut, p.groups);
+  } else {
+    block_sums_kernel<false><<<grid, threads, smem, s>>>(r, c, o, m, k, row_offset, col_offset,
+                                                         cr, cr2, cut, p.groups);
   }
-
-  if (active) {
-    float4* o = reinterpret_cast<float4*>(out + (static_cast<size_t>(b) * m + i) * kOut);
-    o[0] = make_float4(static_cast<float>(s0), static_cast<float>(s1),
-                       static_cast<float>(s2), static_cast<float>(s3));
-    o[1] = make_float4(static_cast<float>(s4), static_cast<float>(s5),
-                       static_cast<float>(s6), static_cast<float>(s7));
-    if (kFull) {
-      o[2] = make_float4(static_cast<float>(deg), rmin, static_cast<float>(s10),
-                         static_cast<float>(s11));
-    } else {
-      o[2] = make_float4(static_cast<float>(deg), 0.f, 0.f, 0.f);
-    }
-    o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launches K1 on `stream` and returns cudaGetLastError() (0 on success).
 // xr [b,m,4], xc [b,k,4] and out [b,m,16] are contiguous f32 device buffers,
-// out 16-byte aligned; b <= 65535.  full: 0 = "core", 1 = "full".
-extern "C" int gft_block_sums(const void* xr, const void* xc, void* out, int b,
-                              int m, int k, int row_offset, int col_offset,
-                              float cr, float cr2, int full, void* stream) {
+// 16-byte aligned; b <= 65535.  full: 0 = "core", 1 = "full".
+extern "C" int gft_block_sums(const void* xr, const void* xc, void* out, int b, int m, int k,
+                              int row_offset, int col_offset, float cr, float cr2, int full,
+                              void* stream) {
   if (b == 0 || m == 0) return 0;
-  const dim3 grid((m + kRows - 1) / kRows, b);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* r = static_cast<const float*>(xr);
-  const float* c = static_cast<const float*>(xc);
-  float* o = static_cast<float*>(out);
-  if (full) {
-    block_sums_kernel<true><<<grid, kRows, 0, s>>>(r, c, o, m, k, row_offset,
-                                                   col_offset, cr, cr2);
-  } else {
-    block_sums_kernel<false><<<grid, kRows, 0, s>>>(r, c, o, m, k, row_offset,
-                                                    col_offset, cr, cr2);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_block_sums(xr, xc, out, b, m, k, row_offset, col_offset, cr, cr2, full,
+                           block_sums_plan(b, m, k), stream);
+}
+
+// The launch geometry gft_block_sums takes at this shape: grid[0] blocks,
+// grid[1] threads a block, grid[2] warps that split a row's columns.
+extern "C" void gft_block_sums_grid(int b, int m, int k, int* grid) {
+  const gft::Plan p = block_sums_plan(b, m, k);
+  const int row_warps = (m + kWarp - 1) / kWarp;
+  grid[0] = b * ((row_warps + p.row_warps - 1) / p.row_warps);
+  grid[1] = p.warps() * kWarp;
+  grid[2] = p.groups;
 }

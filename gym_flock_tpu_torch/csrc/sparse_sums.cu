@@ -14,112 +14,135 @@
 //   "full" also writes 9 = min r2 over the listed pairs (+inf if none).
 // Output [B,N,16] f32 in sorted order; unused channels are written as zeros.
 //
-// What bounds it: f32 divide and FMA throughput, at about 30 flops and one
-// IEEE divide per listed pair; it reads each listed column block (2 KB) once
-// per row block, so the bytes are few.  Known limits, left for later work:
-// * at N=65,536 and B=1 the grid has only 512 blocks of 128 threads for
-//   132 SMs, under four waves of small blocks;
-// * the gather of xs through the permutation and the scatter of the result
-//   back to agent order run outside the kernel, as two more passes.
+// What bounds it: the pair test on every listed pair (about 8 instructions,
+// 5 flops) and the body (one IEEE divide, ~30 flops, f64 adds) on the ~0.3%
+// of listed pairs within reach on bench metric 4's Verlet table.  At
+// N=65,536, B=1 the table rows are uneven (14 slots against a mean of 8), so
+// one block walking a whole row would let the longest rows set the time.  It
+// reads each listed column block (2 KB) once per row warp, so the bytes are
+// few.  Left for later work: the gather of xs through the permutation and the
+// scatter of the result back to agent order run outside the kernel, as two
+// more passes.
 //
-// Design.  Grid (n_b, B), 128 threads; each thread owns one sorted row agent
-// and keeps its accumulators in registers.  The block walks over its row of
-// the table: this loop replaces the TPU's sequential k grid axis and its
-// scalar prefetch.  A slot is block-uniform, so a pad slot (or any entry
-// outside [0, n_b)) is skipped whole, and __syncthreads stays uniform.  A
-// listed column block is staged in shared memory as SoA px,py,vx,vy (2 KB).
-// No atomics, so the result is deterministic.
-// * The self pair (same sorted id) is skipped: the Pallas kernel's r2 := inf,
-//   zero in every sum and absent from the min.
+// Design (the pair loop is csrc/flocking_pairs.cuh, shared with K1): a warp
+// owns 32 sorted row agents of one row block, one a lane, and walks the
+// column blocks its table row lists, each staged in shared memory by
+// cp.async, double-buffered: a test pass over every listed pair sets a hit
+// mask, a body pass runs the arithmetic on the hits only.  When the batch is
+// too small to fill the card (B=1 at N=65,536), a row's listed blocks are
+// dealt round-robin to `groups` warps of the block, so the longest row walks
+// ceil(14 / groups) blocks; the partials are added in group order in shared
+// memory.  Pad slots (and any entry outside [0, n_b)) are skipped, uniformly
+// across the warp.  No atomics, so the result is deterministic.
+// * The self pair (same sorted id: same block, same lane) is skipped: the
+//   Pallas kernel's r2 := inf, zero in every sum and absent from the min.
 // * r2 is formed with __fmul_rn/__fadd_rn, so no FMA contraction moves it
 //   across the radius: the degree equals the plain version's exactly.  The
 //   divide stays IEEE (built without --use_fast_math, -prec-div=true).
 // * Each pair term is formed in f32 as in the JAX kernel; the sums
 //   accumulate in f64, as in K1's port.
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "flocking_pairs.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;  // agents per block of the table = threads per block
-constexpr int kOut = 16;     // output channels per agent
+using gft::kTile;
+using gft::kWarp;
 
 enum ChannelSet { kCore = 0, kExpert = 1, kFull = 2 };
 
-template <int kSet>
-__global__ void __launch_bounds__(kBlock)
-sparse_sums_kernel(const float* __restrict__ xs, const int* __restrict__ table,
-                   float* __restrict__ out, int n, int k_max, float cr, float cr2) {
-  constexpr bool kMasked = kSet != kCore;  // channels 10/11
-  constexpr bool kMin = kSet == kFull;     // channel 9
-  __shared__ float spx[kBlock], spy[kBlock], svx[kBlock], svy[kBlock];
-  const int n_b = n / kBlock;
-  const int b = blockIdx.y;
-  const int i = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float4* xb = reinterpret_cast<const float4*>(xs) + static_cast<size_t>(b) * n;
-  const int* slots = table + (static_cast<size_t>(b) * n_b + i) * k_max;
+// K3's tiles: the listed slots of one table row, the group-th, then every
+// groups-th.  A cursor is a slot index; k_max ends the walk.
+struct ListedBlocks {
+  const float4* xb;  // this swarm's sorted agents
+  const int* slots;  // the row block's table row
+  int k_max;
+  int n_b;
+  int group;
+  int groups;
+  int row_block;
+  int self_lane;  // the row's lane within its block
 
-  const float4 me = xb[static_cast<size_t>(i) * kBlock + tid];
-  double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0, s4 = 0.0, s5 = 0.0;
-  double s6 = 0.0, s7 = 0.0, s10 = 0.0, s11 = 0.0;
-  int deg = 0;
-  float rmin = CUDART_INF_F;
-
-  for (int s = 0; s < k_max; ++s) {
-    const int j = slots[s];
-    if (j < 0 || j >= n_b) continue;  // block-uniform: the whole block skips
-    const float4 c = xb[static_cast<size_t>(j) * kBlock + tid];
-    spx[tid] = c.x;
-    spy[tid] = c.y;
-    svx[tid] = c.z;
-    svy[tid] = c.w;
-    __syncthreads();
-    const int self_t = (j == i) ? tid : -1;
-    for (int t = 0; t < kBlock; ++t) {
-      if (t == self_t) continue;
-      const float dx = me.x - spx[t];
-      const float dy = me.y - spy[t];
-      const float dvx = me.z - svx[t];
-      const float dvy = me.w - svy[t];
-      const float r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-      const float adj = r2 < cr2 ? 1.0f : 0.0f;
-      const float inv = 1.0f / r2;
-      const float inv2 = inv * inv;
-      const float gfac = r2 > cr ? 0.0f : 2.0f * inv * (1.0f - inv);
-      const float gx = dx * gfac;
-      const float gy = dy * gfac;
-      s0 += dvx * adj;
-      s1 += dx * inv2 * adj;
-      s2 += dx * inv * adj;
-      s3 += dvy * adj;
-      s4 += dy * inv2 * adj;
-      s5 += dy * inv * adj;
-      s6 += gx;
-      s7 += gy;
-      deg += r2 < cr2;
-      if (kMasked) {
-        s10 += gx * adj;
-        s11 += gy * adj;
-      }
-      if (kMin) rmin = fminf(rmin, r2);
+  // the slot of the (skip + 1)-th listed block after slot s, or k_max
+  __device__ int after(int s, int skip) const {
+    for (++s; s < k_max; ++s) {
+      const int j = __ldg(slots + s);
+      if (j >= 0 && j < n_b && skip-- == 0) break;
     }
-    __syncthreads();
+    return s;
   }
+  __device__ int first() const { return after(-1, group); }
+  __device__ int next(int s) const { return after(s, groups - 1); }
+  __device__ bool valid(int s) const { return s < k_max; }
+  __device__ const float4* src(int s) const {
+    return xb + static_cast<size_t>(__ldg(slots + s)) * kTile;
+  }
+  __device__ int cols(int) const { return kTile; }
+  __device__ int self(int s) const { return any_self(s) ? self_lane : -1; }
+  __device__ bool any_self(int s) const { return __ldg(slots + s) == row_block; }
+};
 
-  float4* o = reinterpret_cast<float4*>(
-      out + (static_cast<size_t>(b) * n + static_cast<size_t>(i) * kBlock + tid) * kOut);
-  o[0] = make_float4(static_cast<float>(s0), static_cast<float>(s1),
-                     static_cast<float>(s2), static_cast<float>(s3));
-  o[1] = make_float4(static_cast<float>(s4), static_cast<float>(s5),
-                     static_cast<float>(s6), static_cast<float>(s7));
-  if (kMasked) {
-    o[2] = make_float4(static_cast<float>(deg), kMin ? rmin : 0.f,
-                       static_cast<float>(s10), static_cast<float>(s11));
-  } else {
-    o[2] = make_float4(static_cast<float>(deg), 0.f, 0.f, 0.f);
+template <int kSet>
+__global__ void __launch_bounds__(gft::kMaxThreads, 4)
+sparse_sums_kernel(const float4* __restrict__ xs, const int* __restrict__ table,
+                   float4* __restrict__ out, int n, int k_max, float cr, float cr2, float cut,
+                   int groups) {
+  extern __shared__ float4 smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int group = warp % groups;
+  const int row_warps = blockDim.x / (kWarp * groups);
+  const int row0 = (blockIdx.x * row_warps + warp / groups) * kWarp;
+  const int b = blockIdx.y;
+  const int n_b = n / kTile;
+  const bool active = row0 < n;  // warp-uniform: n is a multiple of 128
+  const int i = row0 + lane;
+
+  gft::PairSums<kSet != kCore, kSet == kFull> acc;
+  if (active) {
+    const float4* xb = xs + static_cast<size_t>(b) * n;
+    const int blk = i / kTile;
+    const ListedBlocks seq{xb, table + (static_cast<size_t>(b) * n_b + blk) * k_max,
+                           k_max, n_b, group, groups, blk, i % kTile};
+    gft::run_tiles(acc, xb[i], true, smem + warp * gft::kWarpSmem, lane, seq, cr, cr2, cut);
   }
-  o[3] = make_float4(0.f, 0.f, 0.f, 0.f);
+  gft::combine_and_store(acc, smem, warp, group, groups, lane,
+                         active ? out + (static_cast<size_t>(b) * n + i) * (gft::kOut / 4)
+                                : nullptr);
+}
+
+gft::Plan sparse_sums_plan(int b, int n, int k_max) {
+  return gft::plan_split(b, n / kWarp, k_max);
+}
+
+// Launches K3 with the geometry `p`; returns cudaGetLastError().
+int launch_sparse_sums(const void* xs, const void* table, void* out, int b, int n, int k_max,
+                       float cr, float cr2, int set, const gft::Plan& p, void* stream) {
+  const int row_warps = n / kWarp;
+  const dim3 grid((row_warps + p.row_warps - 1) / p.row_warps, b);
+  const int threads = p.warps() * kWarp;
+  const size_t smem = p.smem_bytes();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* x = static_cast<const float4*>(xs);
+  const int* tb = static_cast<const int*>(table);
+  float4* o = static_cast<float4*>(out);
+  const float cut = gft::hit_cut(cr, cr2);
+  switch (set) {
+    case kCore:
+      sparse_sums_kernel<kCore><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, cr, cr2, cut,
+                                                             p.groups);
+      break;
+    case kExpert:
+      sparse_sums_kernel<kExpert><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, cr, cr2,
+                                                               cut, p.groups);
+      break;
+    case kFull:
+      sparse_sums_kernel<kFull><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, cr, cr2, cut,
+                                                             p.groups);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -128,27 +151,19 @@ sparse_sums_kernel(const float* __restrict__ xs, const int* __restrict__ table,
 // xs [b,n,4] f32 (16-byte aligned), table [b,n/128,k_max] int32 and out
 // [b,n,16] f32 (16-byte aligned) are contiguous device buffers; n is a
 // multiple of 128 and b <= 65535.  set: 0 = "core", 1 = "expert", 2 = "full".
-extern "C" int gft_sparse_sums(const void* xs, const void* table, void* out, int b,
-                               int n, int k_max, float cr, float cr2, int set,
-                               void* stream) {
+extern "C" int gft_sparse_sums(const void* xs, const void* table, void* out, int b, int n,
+                               int k_max, float cr, float cr2, int set, void* stream) {
   if (b == 0 || n == 0) return 0;
-  const dim3 grid(n / kBlock, b);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* x = static_cast<const float*>(xs);
-  const int* tb = static_cast<const int*>(table);
-  float* o = static_cast<float*>(out);
-  switch (set) {
-    case kCore:
-      sparse_sums_kernel<kCore><<<grid, kBlock, 0, st>>>(x, tb, o, n, k_max, cr, cr2);
-      break;
-    case kExpert:
-      sparse_sums_kernel<kExpert><<<grid, kBlock, 0, st>>>(x, tb, o, n, k_max, cr, cr2);
-      break;
-    case kFull:
-      sparse_sums_kernel<kFull><<<grid, kBlock, 0, st>>>(x, tb, o, n, k_max, cr, cr2);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_sparse_sums(xs, table, out, b, n, k_max, cr, cr2, set,
+                            sparse_sums_plan(b, n, k_max), stream);
+}
+
+// The launch geometry gft_sparse_sums takes at this shape: grid[0] blocks,
+// grid[1] threads a block, grid[2] warps that split a row's listed blocks.
+extern "C" void gft_sparse_sums_grid(int b, int n, int k_max, int* grid) {
+  const gft::Plan p = sparse_sums_plan(b, n, k_max);
+  const int row_warps = n / kWarp;
+  grid[0] = b * ((row_warps + p.row_warps - 1) / p.row_warps);
+  grid[1] = p.warps() * kWarp;
+  grid[2] = p.groups;
 }

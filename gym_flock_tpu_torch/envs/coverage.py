@@ -584,8 +584,9 @@ def coverage_factory(variant: str):
     * explore       — ExploreEnv-v0/-v1 (coverage_explore.py:10)
     * explore_full  — ExploreFullEnv-v0 (coverage_explore_full.py:13-17)
 
-    ``device`` (default ``"cpu"``) places the bank, and with it every
-    tensor the env makes.  The occupancy variants accept ``real_map``:
+    ``device`` (default ``"cuda"``; pass ``"cpu"`` to run on the host)
+    places the bank, and with it every tensor the env makes; an explicit
+    ``bank=`` keeps its own device.  The occupancy variants accept ``real_map``:
     ``None`` (default) uses the real ARL facility map when
     ``envs.maps.find_reference_map`` finds one, ``False`` forces the
     procedural map, ``True`` requires the real map, a string is a path to a
@@ -660,7 +661,7 @@ def coverage_factory(variant: str):
                 horizon=horizon,
                 seed=bank_seed,
                 kind=bank_kind,
-                device="cpu" if device is None else device,
+                device="cuda" if device is None else device,
                 res=cfg["res"],
                 full_map=full_map,
                 **({"perimeter_delta": peri} if peri is not None else {}),

@@ -113,10 +113,14 @@ def load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gft_block_sums.argtypes = [p, p, p, i, i, i, i, i, f, f, i, p]
         lib.gft_block_sums.restype = ctypes.c_int
+        lib.gft_block_sums_grid.argtypes = [i, i, i, p]
+        lib.gft_block_sums_grid.restype = None
         lib.gft_rowmin.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.gft_rowmin.restype = ctypes.c_int
         lib.gft_sparse_sums.argtypes = [p, p, p, i, i, i, f, f, i, p]
         lib.gft_sparse_sums.restype = ctypes.c_int
+        lib.gft_sparse_sums_grid.argtypes = [i, i, i, p]
+        lib.gft_sparse_sums_grid.restype = None
         lib.gft_adj_matmul.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i, f, p]
         lib.gft_adj_matmul.restype = ctypes.c_int
         lib.gft_sparse_adj.argtypes = [p, p, p, p, p, i, i, i, i, f, p]

@@ -28,6 +28,7 @@ __all__ = [
     "flocking_sums_block_reference",
     "flocking_features_large",
     "turner_controller_large",
+    "launch_grid",
 ]
 
 N_OUT = 16
@@ -132,6 +133,8 @@ def _launch(xr, xc, row_offset, col_offset, comm_radius, comm_radius2, channels)
     k = xc.shape[1]
     if b > _MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel grid's limit {_MAX_GRID_Y}")
+    if xr.data_ptr() % 16 or xc.data_ptr() % 16:
+        raise ValueError("xr and xc must be 16-byte aligned (the kernel reads float4 rows)")
     out = torch.empty(b, m, N_OUT, dtype=torch.float32, device=xr.device)
     if b == 0 or m == 0:
         return out
@@ -147,6 +150,19 @@ def _launch(xr, xc, row_offset, col_offset, comm_radius, comm_radius2, channels)
         raise RuntimeError(f"K1 (block_sums) launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def launch_grid(b: int, m: int, k: int) -> tuple:
+    """``(blocks, threads a block, warps that split a row's columns)`` of
+    the kernel's launch for ``m`` rows against ``k`` columns in ``b`` swarms
+    (chosen from the shape; needs the built library)."""
+    import ctypes
+
+    from gym_flock_tpu_torch.ops import _build
+
+    grid = (ctypes.c_int * 3)()
+    _build.load().gft_block_sums_grid(b, m, k, grid)
+    return tuple(grid)
 
 
 def flocking_sums_block(

@@ -50,6 +50,7 @@ __all__ = [
     "block_pair_table",
     "sparse_sums_sorted",
     "sparse_sums_sorted_reference",
+    "launch_grid",
     "permute",
     "unsort",
     "flocking_sums_sparse",
@@ -265,6 +266,19 @@ def _launch(xs, table, comm_radius, comm_radius2, channels):
         raise RuntimeError(f"K3 (sparse_sums) launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def launch_grid(b: int, n: int, k_max: int) -> tuple:
+    """``(blocks, threads a block, warps that split a row's listed blocks)``
+    of K3's launch for ``b`` swarms of ``n`` agents and a table ``k_max``
+    wide (chosen from the shape; needs the built library)."""
+    import ctypes
+
+    from gym_flock_tpu_torch.ops import _build
+
+    grid = (ctypes.c_int * 3)()
+    _build.load().gft_sparse_sums_grid(b, n, k_max, grid)
+    return tuple(grid)
 
 
 def sparse_sums_sorted(

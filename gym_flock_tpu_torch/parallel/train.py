@@ -179,7 +179,7 @@ class FlockingImitationTrainer(_ImitationTrainer):
     :class:`AggregationGNN` over ``(features, adjacency)`` batches."""
 
     def __init__(self, env, env_params, model: Optional[AggregationGNN] = None,
-                 learning_rate: float = 1e-3, device="cpu"):
+                 learning_rate: float = 1e-3, device="cuda"):
         super().__init__(env, env_params, model or AggregationGNN(), learning_rate, device)
 
     def collect(self, generator, n_envs, n_steps):
@@ -192,7 +192,7 @@ class LargeFlockingImitationTrainer(_ImitationTrainer):
     aggregation on K2 (or K4 through ``aggregate_fn``)."""
 
     def __init__(self, env, env_params, model: Optional[LargeAggregationGNN] = None,
-                 learning_rate: float = 1e-3, device="cpu"):
+                 learning_rate: float = 1e-3, device="cuda"):
         model = model or LargeAggregationGNN(comm_radius2=float(env_params.comm_radius2))
         super().__init__(env, env_params, model, learning_rate, device)
 

@@ -43,7 +43,7 @@ def _envs(env_id, kw):
     """Both packages' env and params, and the JAX functions, jitted and
     vmapped over the batch."""
     jenv, jp = gft_jax.make(env_id, **dict(kw))
-    tenv, tp = gft.make(env_id, **dict(kw))
+    tenv, tp = gft.make(env_id, device="cpu", **dict(kw))
     jfn = {
         "reset": jax.jit(jax.vmap(lambda k: jenv.reset_env(k, jp))),
         "controller": jax.jit(jax.vmap(lambda s, k: jenv.controller(s, jp, key=k))),
@@ -290,3 +290,15 @@ def test_default_params_build_coverage_v0():
     assert params.n_robots == 6 and "cost_rows_pad" in params.bank
     state, obs = env.reset_env(torch.Generator().manual_seed(1), params, 2)
     assert obs["nodes"].shape == (2, 500, 3)
+
+
+def test_factory_builds_the_bank_on_the_card_by_default():
+    """``make("Coverage-v0")`` without ``device=`` puts the bank, and with it
+    the env, on the card; on a machine without one it raises instead of
+    stepping on the host."""
+    if torch.cuda.is_available():
+        _, params = gft.make("Coverage-v0", n_graphs=1)
+        assert params.bank["n_targets"].device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            gft.make("Coverage-v0", n_graphs=1)

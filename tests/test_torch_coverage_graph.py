@@ -34,7 +34,7 @@ def _np(x):
 @pytest.mark.parametrize("env_id,kw", CASES)
 def test_bank_equals_jax_bank(env_id, kw):
     _, jp = gft_jax.make(env_id, **kw)
-    _, tp = gft.make(env_id, **kw)
+    _, tp = gft.make(env_id, device="cpu", **kw)
     shared = [k for k in tp.bank if k in jp.bank and not k.startswith("disc_reach_r")]
     assert {"graph_cost", "graph_prev", "graph_hops", "graph_cost_mm", "cost_pack_ok",
             "neighbor_table", "motion_senders", "target_pos"} <= set(shared)
@@ -53,7 +53,7 @@ def test_bank_equals_jax_bank(env_id, kw):
 
 def test_disc_reach_lists_equal_the_jax_table():
     _, jp = gft_jax.make("ExploreEnv-v0", n_graphs=2)
-    _, tp = gft.make("ExploreEnv-v0", n_graphs=2)
+    _, tp = gft.make("ExploreEnv-v0", n_graphs=2, device="cpu")
     key = reach_key(jp.discover_radius)
     table = _np(jp.bank[key])  # [G*T, T] 0/1
     lists = disc_reach_lists(tp.bank, tp.discover_radius)[key].numpy()  # [G, T, K]
@@ -102,7 +102,7 @@ def test_find_reference_map_order(monkeypatch, tmp_path):
 
 
 def test_explore_full_factory_is_procedural_when_maps_are_off():
-    env, params = gft.make("ExploreFullEnv-v0")
+    env, params = gft.make("ExploreFullEnv-v0", device="cpu")
     assert params.n_robots == 100 and params.hide_nodes and params.n_node_feat == 4
     # the 1500-node budget of the procedural map, not the real map's 5,759
     assert params.max_targets == 1400
@@ -115,5 +115,5 @@ def test_explore_full_factory_is_procedural_when_maps_are_off():
                                   "revisit_nodes"])
 def test_unported_modes_raise(flag):
     with pytest.raises(NotImplementedError, match=flag):
-        gft.make("Coverage-v0", n_graphs=1, **{flag: True})
+        gft.make("Coverage-v0", n_graphs=1, device="cpu", **{flag: True})
 

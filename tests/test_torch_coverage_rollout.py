@@ -74,7 +74,7 @@ def test_expert_rollout_autoresets_three_step_episodes():
     the fresh episode's."""
     from gym_flock_tpu_torch import make
 
-    env, params = make("Coverage-v0", n_graphs=2, episode_length=4, max_steps=4)
+    env, params = make("Coverage-v0", n_graphs=2, episode_length=4, max_steps=4, device="cpu")
     state, traj = tro.batch_rollout(env, params, torch.Generator().manual_seed(2), 3, 7,
                                     policy="expert")
     assert traj["done"].tolist() == [[False, False, True, False, False, True, False]] * 3

@@ -5,7 +5,13 @@ Tolerances: the degree (channel 8) exactly; channel 9 (min r^2) within
 1 ulp (XLA may contract dx*dx + dy*dy into an FMA); every other channel
 max |port - jax| / (1 + |jax|) < 1e-4, the measure of
 tests/test_pallas_kernels.py (the 1/r^4 sums are large and the summation
-orders differ).
+orders differ).  Where two coincident agents make sums NaN, the NaN lie in
+the same places and the degree is exact.
+
+The CUDA kernel runs its arithmetic only on the pairs with r2 < cr2 or not
+r2 > cr; the premise tests hold the plain version equal, bit for bit with
+NaN equal, to the same sums over those pairs only, on the edge-case swarms
+of ``chip_smoke.edge_swarms``.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -14,6 +20,7 @@ import torch
 
 from gym_flock_tpu.ops.pallas_flocking import flocking_sums as jax_flocking_sums
 from gym_flock_tpu.ops.pallas_flocking import flocking_sums_block as jax_flocking_sums_block
+from chip_smoke import EDGE_CASES, edge_swarms
 from gym_flock_tpu_torch.ops import flocking_sums as k1
 
 torch.set_num_threads(2)
@@ -25,6 +32,33 @@ SUM_TOL = 1e-4
 
 def _swarms(b, n, seed):
     return np.random.RandomState(seed).randn(b, n, 4).astype(np.float32) * 2
+
+
+def _equal_nan(a, b):
+    """Bit-for-bit equality of two f32 results, NaN equal to NaN."""
+    a, b = torch.as_tensor(np.asarray(a)), torch.as_tensor(np.asarray(b))
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def restricted_sums(xr, xc, row_offset, col_offset, cr, cr2, channels):
+    """K1's plain version row by row over only the columns within reach of
+    the row (r2 < cr2 or not r2 > cr, NaN included), in column order; the
+    row's own column is kept and masked by id, as in the full pass."""
+    b, m, _ = xr.shape
+    out = torch.zeros(b, m, k1.N_OUT)
+    col_ids = col_offset + torch.arange(xc.shape[1])
+    for s in range(b):
+        for i in range(m):
+            d = xr[s, i, :2] - xc[s, :, :2]
+            r2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+            own = col_ids == row_offset + i
+            keep = (r2 < cr2) | ~(r2 > cr) | own
+            cols = xc[s:s + 1, keep].contiguous()
+            at = own[keep].nonzero()
+            row_id = int(at[0]) if len(at) else cols.shape[1]  # its own column, or none
+            out[s, i] = k1.flocking_sums_block_reference(
+                xr[s:s + 1, i:i + 1].contiguous(), cols, row_id, 0, cr, cr2, channels)[0, 0]
+    return out
 
 
 def _sum_channels(channels):
@@ -88,6 +122,38 @@ def test_column_tiles_combine_to_whole_swarm():
     _assert_k1_close(combined.numpy(), whole[:, 40:110].numpy(), "full")
 
 
+@pytest.mark.parametrize("channels", ["core", "full"])
+@pytest.mark.parametrize("cr", [0.9, 2.0])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_plain_version_sums_only_the_pairs_within_reach(case, cr, channels):
+    """Every pair with r2 >= cr2 and r2 > cr adds exact zeros: dropping
+    them leaves every channel but the min (9) unchanged, NaN included."""
+    x = torch.from_numpy(edge_swarms(case, cr))
+    want = k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr * cr, channels)
+    got = restricted_sums(x, x, 0, 0, cr, cr * cr, channels)
+    sums = [c for c in range(k1.N_OUT) if c != 9]
+    assert _equal_nan(got[..., sums], want[..., sums])
+    assert bool(want.isnan().any()) == (case == "coincident pair")
+    assert bool(want[..., :8].nan_to_num().any()) == (case != "none in reach")
+
+
+@pytest.mark.parametrize("channels", ["core", "full"])
+@pytest.mark.parametrize("cr", [0.9, 2.0])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_edge_cases_match_pallas(case, cr, channels):
+    x = edge_swarms(case, cr)
+    got = k1.flocking_sums_block(torch.from_numpy(x), torch.from_numpy(x), 0, 0, cr, cr * cr,
+                                 channels=channels).numpy()
+    want = np.asarray(jax_flocking_sums_block(jnp.asarray(x), jnp.asarray(x), 0, 0, cr, cr * cr,
+                                              interpret=True, channels=channels))
+    if case == "coincident pair":
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(got[..., 8], want[..., 8])
+        assert np.isnan(got).any()
+    else:
+        _assert_k1_close(got, want, channels)
+
+
 def test_row_without_other_agents_has_infinite_min():
     """One agent alone: no pair, zero sums, channel 9 = +inf (the Pallas
     kernel reports its far-away padding distance there instead)."""
@@ -131,15 +197,36 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
     assert torch.equal(got, want)
 
 
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
 @pytest.mark.cuda
-@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs an NVIDIA GPU")
-@pytest.mark.parametrize("b,n", [(3, 1000), (64, 100)])
-def test_kernel_matches_plain_on_the_card(b, n):
+@pytest.mark.parametrize("b,n", [(3, 1000), (64, 100), (4, 4096)])
+def test_kernel_matches_plain_on_the_card(cuda, b, n):
     for channels in ("core", "full"):
-        x = torch.from_numpy(_swarms(b, n, seed=n)).cuda()
+        x = torch.from_numpy(_swarms(b, n, seed=n)).to(cuda)
         before = k1.launches
         got = k1.flocking_sums_block(x, x, 0, 0, CR, CR2, channels=channels)
         torch.cuda.synchronize()
         assert k1.launches == before + 1
         want = k1.flocking_sums_block_reference(x, x, 0, 0, CR, CR2, channels)
         _assert_k1_close(got.cpu().numpy(), want.cpu().numpy(), channels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr", [0.9, 2.0])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_kernel_matches_plain_on_edge_cases(cuda, case, cr):
+    x = torch.from_numpy(edge_swarms(case, cr)).to(cuda)
+    for channels in ("core", "full"):
+        got = k1.flocking_sums_block(x, x, 0, 0, cr, cr * cr, channels=channels).cpu().numpy()
+        want = k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr * cr, channels).cpu().numpy()
+        if case == "coincident pair":
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            np.testing.assert_array_equal(got[..., 8], want[..., 8])
+        else:
+            _assert_k1_close(got, want, channels)

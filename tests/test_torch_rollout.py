@@ -127,7 +127,7 @@ def test_select_over_dict_observations():
 def test_step_autoreset_with_dict_observations_where_one_env_is_done():
     """Coverage observations are dicts; env 0 is one step from its episode
     length, so it alone is done and replaced by a fresh reset."""
-    tenv, tp = gft.make("Coverage-v0", n_graphs=2, episode_length=3, max_steps=3)
+    tenv, tp = gft.make("Coverage-v0", n_graphs=2, episode_length=3, max_steps=3, device="cpu")
     gen = torch.Generator().manual_seed(1)
     state, _ = tenv.reset_env(gen, tp, 3)  # time 1
     state = type(state)(**{**state.__dict__, "time": torch.tensor([2, 1, 1], dtype=torch.int32)})
@@ -174,7 +174,7 @@ def test_expert_policy_passes_the_generator():
 def test_expert_policy_string_drives_coverage():
     """The counterpart of tests/test_coverage_rollout.py's key pass-through
     test: 30 expert steps of Coverage-v0 make steady progress."""
-    tenv, tp = gft.make("Coverage-v0", n_graphs=1)
+    tenv, tp = gft.make("Coverage-v0", n_graphs=1, device="cpu")
     _, traj = tro.batch_rollout(tenv, tp, torch.Generator().manual_seed(4), 2, 30,
                                 policy="expert", keep_obs=False)
     assert bool(torch.isfinite(traj["reward"]).all())

@@ -6,7 +6,14 @@ Tolerances: permutations, candidate tables, overflow flags, Verlet states,
 acceptance booleans and the degree exactly; every other sum channel
 max |port - jax| / (1 + |jax|) < 1e-4, the measure of
 tests/test_sparse_flocking.py (the port accumulates in f64, JAX in f32); the
-rollouts' ``u``, values and reward the same relative measure.
+rollouts' ``u``, values and reward the same relative measure.  Where two
+coincident agents make sums NaN, the NaN lie in the same places and the
+degree is exact.
+
+The CUDA kernel runs its arithmetic only on the listed pairs with r2 < cr2
+or not r2 > cr; the premise tests hold the plain version equal, bit for bit
+with NaN equal, to the same sums over those pairs only, on the edge-case
+swarms of ``chip_smoke.edge_swarms``.
 """
 import dataclasses
 import math
@@ -18,12 +25,14 @@ import pytest
 import torch
 
 import gym_flock_tpu as gft_jax
+from chip_smoke import EDGE_CASES, edge_swarms
 import gym_flock_tpu_torch as gft
 from gym_flock_tpu.ops import sparse_flocking as jsf
 from gym_flock_tpu_torch import convert
 from gym_flock_tpu_torch.envs import flocking as tfl
 from gym_flock_tpu_torch.ops import flocking_sums as k1
 from gym_flock_tpu_torch.ops import sparse_flocking as sf
+from gym_flock_tpu_torch.ops.flocking_sums import N_OUT
 
 torch.set_num_threads(2)
 
@@ -207,6 +216,79 @@ def test_plain_k3_full_adds_the_min_over_listed_pairs():
     assert near.any() and (~near).any()
     assert torch.equal(full[..., 9][near], dense[..., 9][near])
     assert (full[..., 9][~near] >= dense[..., 9][~near]).all()
+
+
+def _edge_sorted(case, cr):
+    """An edge-case swarm sorted at ``cr`` and its table."""
+    x = torch.from_numpy(edge_swarms(case, cr))
+    xs = sf.permute(x, sf.hilbert_order(x, cr))
+    table, overflow = sf.block_pair_table(xs, cr, K_MAX)
+    assert not overflow.any()
+    return xs, table
+
+
+def _equal_nan(a, b):
+    """Bit-for-bit equality of two f32 results, NaN equal to NaN."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def _restricted_k3(xs, table, cr, cr2, channels):
+    """K1's plain version row by row over only the listed columns within
+    reach of the row (r2 < cr2 or not r2 > cr, NaN included), in the table's
+    order; the row's own column is kept and masked by id."""
+    b, n, _ = xs.shape
+    out = torch.zeros(b, n, k1.N_OUT)
+    k1_channels = "core" if channels == "core" else "full"
+    for s in range(b):
+        for i in range(n):
+            blocks = [int(j) for j in table[s, i // sf.BLOCK] if j >= 0]
+            ids = torch.cat([torch.arange(j * sf.BLOCK, (j + 1) * sf.BLOCK) for j in blocks])
+            cols = xs[s, ids]
+            d = xs[s, i, :2] - cols[:, :2]
+            r2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+            own = ids == i
+            keep = (r2 < cr2) | ~(r2 > cr) | own
+            at = own[keep].nonzero()
+            row_id = int(at[0]) if len(at) else int(keep.sum())  # its own column, or none
+            out[s, i] = k1.flocking_sums_block_reference(
+                xs[s:s + 1, i:i + 1].contiguous(), cols[None, keep].contiguous(), row_id, 0,
+                cr, cr2, k1_channels)[0, 0]
+    if channels == "core":
+        out[..., 9:] = 0.0
+    return out
+
+
+@pytest.mark.parametrize("channels", ["core", "expert", "full"])
+@pytest.mark.parametrize("cr", [0.9, 2.0])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_plain_k3_sums_only_the_pairs_within_reach(case, cr, channels):
+    """Every listed pair with r2 >= cr2 and r2 > cr adds exact zeros:
+    dropping them leaves every channel but the min (9) unchanged, NaN
+    included."""
+    xs, table = _edge_sorted(case, cr)
+    want = sf.sparse_sums_sorted_reference(xs, table, cr, cr * cr, channels)
+    got = _restricted_k3(xs, table, cr, cr * cr, channels)
+    sums = [c for c in range(N_OUT) if c != 9]
+    assert _equal_nan(got[..., sums], want[..., sums])
+    assert bool(want.isnan().any()) == (case == "coincident pair")
+    assert bool(want[..., :8].nan_to_num().any()) == (case != "none in reach")
+
+
+@pytest.mark.parametrize("channels", ["core", "expert"])
+@pytest.mark.parametrize("cr", [0.9, 2.0])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_k3_edge_cases_match_pallas(case, cr, channels):
+    xs, table = _edge_sorted(case, cr)
+    got = sf.sparse_sums_sorted(xs, table, cr, cr * cr, channels).numpy()
+    want = np.asarray(jsf._sparse_sums_pallas(jnp.asarray(xs.numpy()), jnp.asarray(table.numpy()),
+                                              cr, cr * cr, interpret=True,
+                                              expert=channels == "expert"))
+    if case == "coincident pair":
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(got[..., 8], want[..., 8])
+        assert np.isnan(got).any()
+    else:
+        _assert_sums_close(got, want, channels)
 
 
 def test_plain_k3_skips_pad_slots_anywhere():
@@ -562,3 +644,19 @@ def test_k3_matches_plain_on_the_card(cuda, name):
         assert sf.launches == before + 1
         want = sf.sparse_sums_sorted_reference(xs, table, CR, CR2, channels)
         _assert_sums_close(got.cpu().numpy(), want.cpu().numpy(), channels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr", [0.9, 2.0])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_k3_matches_plain_on_edge_cases(cuda, case, cr):
+    xs, table = _edge_sorted(case, cr)
+    xs, table = xs.to(cuda), table.to(cuda)
+    for channels in ("core", "expert", "full"):
+        got = sf.sparse_sums_sorted(xs, table, cr, cr * cr, channels).cpu()
+        want = sf.sparse_sums_sorted_reference(xs, table, cr, cr * cr, channels).cpu()
+        if case == "coincident pair":
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(got[..., 8], want[..., 8])
+        else:
+            _assert_sums_close(got.numpy(), want.numpy(), channels)

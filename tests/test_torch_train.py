@@ -73,14 +73,14 @@ def _trainers(kind):
     tenv, tp = gft.make(env_id, n_agents=n)
     if kind == "dense":
         jtr = jtrain.FlockingImitationTrainer(jenv, jp)
-        ttr = tt.FlockingImitationTrainer(tenv, tp)
+        ttr = tt.FlockingImitationTrainer(tenv, tp, device="cpu")
     elif kind == "large":
         jtr = jtrain.LargeFlockingImitationTrainer(jenv, jp, interpret=True)
-        ttr = tt.LargeFlockingImitationTrainer(tenv, tp)
+        ttr = tt.LargeFlockingImitationTrainer(tenv, tp, device="cpu")
     else:
         jmodel, model = _sparse_model_pair(float(jp.comm_radius2))
         jtr = jtrain.LargeFlockingImitationTrainer(jenv, jp, model=jmodel)
-        ttr = tt.LargeFlockingImitationTrainer(tenv, tp, model=model)
+        ttr = tt.LargeFlockingImitationTrainer(tenv, tp, model=model, device="cpu")
     carry = jtr.init(jax.random.key(3))
     convert.gnn_params_from_flax(carry[0], ttr.model)
     return (jtr, carry), ttr
@@ -163,7 +163,7 @@ def test_collect_flocking_batch_shapes():
 def test_fit_lowers_the_loss():
     """tests/test_models_train.py:57-62's criterion on the port."""
     env, params = gft.make("FlockingRelative-v0", n_agents=12)
-    trainer = tt.FlockingImitationTrainer(env, params, learning_rate=1e-3)
+    trainer = tt.FlockingImitationTrainer(env, params, learning_rate=1e-3, device="cpu")
     losses = trainer.fit(torch.Generator().manual_seed(0), n_iters=20, n_envs=4, n_steps=6)
     assert len(losses) == 20 and np.isfinite(losses).all()
     assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
@@ -173,7 +173,7 @@ def test_large_trainer_moves_the_parameters():
     """LargeAggregationGNN trains through K2's plain version at N=24; the
     aggregation runs forward only (it acts on inputs before any weight)."""
     env, params = gft.make("FlockingLarge-v0", n_agents=24, max_reset_tries=4)
-    trainer = tt.LargeFlockingImitationTrainer(env, params)
+    trainer = tt.LargeFlockingImitationTrainer(env, params, device="cpu")
     gen = torch.Generator().manual_seed(0)
     trainer.init(gen)
     before = [p.detach().clone() for p in trainer.model.parameters()]
@@ -187,7 +187,7 @@ def test_large_trainer_moves_the_parameters():
 
 def test_checkpoint_round_trips(tmp_path):
     env, params = gft.make("FlockingRelative-v0", n_agents=8)
-    trainer = tt.FlockingImitationTrainer(env, params)
+    trainer = tt.FlockingImitationTrainer(env, params, device="cpu")
     gen = torch.Generator().manual_seed(0)
     trainer.init(gen)
     trainer.train_step(gen, 2, 2)
@@ -195,7 +195,7 @@ def test_checkpoint_round_trips(tmp_path):
     tt.save_checkpoint(path, trainer.model, trainer.optimizer, step=7, generator=gen)
     assert [p.name for p in tmp_path.iterdir()] == ["ckpt.pt"]  # no temp file left
 
-    fresh = tt.FlockingImitationTrainer(env, params)
+    fresh = tt.FlockingImitationTrainer(env, params, device="cpu")
     gen2 = torch.Generator().manual_seed(9)
     fresh.init(gen2)
     step = tt.restore_checkpoint(path, fresh.model, fresh.optimizer, gen2)
@@ -219,18 +219,33 @@ def test_checkpoint_round_trips(tmp_path):
 def test_fit_resume_reproduces_the_uninterrupted_run(tmp_path):
     """Interrupt + resume == straight through: the same weights and losses."""
     env, params = gft.make("FlockingRelative-v0", n_agents=8)
-    full = tt.FlockingImitationTrainer(env, params)
+    full = tt.FlockingImitationTrainer(env, params, device="cpu")
     losses_full = full.fit(torch.Generator().manual_seed(3), n_iters=4, n_envs=2, n_steps=2)
 
     path = str(tmp_path / "resume.pt")
-    part = tt.FlockingImitationTrainer(env, params)
+    part = tt.FlockingImitationTrainer(env, params, device="cpu")
     first = part.fit(torch.Generator().manual_seed(3), n_iters=2, n_envs=2, n_steps=2,
                      ckpt_path=path, ckpt_every=1)
     # a "crash" after 2 steps: a new trainer resumes at step 2
-    resumed = tt.FlockingImitationTrainer(env, params)
+    resumed = tt.FlockingImitationTrainer(env, params, device="cpu")
     rest = resumed.fit(torch.Generator().manual_seed(3), n_iters=4, n_envs=2, n_steps=2,
                        ckpt_path=path)
     assert len(rest) == 2 and resumed.step == 4
     assert first + rest == losses_full
     for a, b in zip(full.model.parameters(), resumed.model.parameters()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["FlockingImitationTrainer", "LargeFlockingImitationTrainer"])
+def test_trainers_default_to_the_card(name):
+    """Without ``device=`` a trainer puts its model and Adam on the card; on
+    a machine without one, construction raises instead of training on the
+    host."""
+    env_id = "FlockingRelative-v0" if name == "FlockingImitationTrainer" else "FlockingLarge-v0"
+    env, params = gft.make(env_id, n_agents=8)
+    trainer_cls = getattr(tt, name)
+    if torch.cuda.is_available():
+        assert trainer_cls(env, params).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            trainer_cls(env, params)
