@@ -26,7 +26,10 @@ Phases, each printing one line:
    once for the reset's observation, once for the rollout's first pass and
    once per step.  The first step's action ``u`` (atol 1e-4) and
    observation (the feature-sum measure above, degree exact) are checked
-   against the plain functions on the same states.
+   against the plain functions on the same states.  Then two fused steps
+   from ``init_state`` of ``wide[..., 1:]`` of a ``[B, N, 5]`` tensor (not
+   contiguous, 4 bytes into its storage) run on K1 (3 launches) and equal
+   those from a contiguous copy.
 5. main path, ``FlockingRelative-v0`` (N=100): ``batch_expert_rollout`` with
    B=8192 and 8 steps; the reset's acceptance test must have run on K1.
 6. banks and K5 (``rowmin``) against its plain PyTorch version on the card:
@@ -53,7 +56,8 @@ Phases, each printing one line:
    "expert".  At (b) the degree through ``flocking_sums_sparse`` must equal
    dense K1's (exact pruning).  K1 "core" against its plain version at (a),
    the shape of the overflow branch of phase 10's workload.  Kernel and
-   plain times at (a) and (b), and dense K1's time at (a).
+   plain times at (a) and (b), and dense K1's time at (a), each with its
+   launch geometry and its bound.
 10. main path, ``FlockingSparse-v0`` at N=65,536, B=1:
    ``batch_expert_rollout(..., init_state=...)`` for 32 steps from bench
    metric 4's state, whose table must not overflow.  K3 must have launched
@@ -65,24 +69,34 @@ Phases, each printing one line:
    overflow the table, so every acceptance test and every pass launches
    exactly one kernel, K3 or K1, and the K1 launches must equal the passes
    that the port found overflowing.  On the reset's state, K1 in "core" and
-   "full" is held against its plain version, and the first step's action
-   and observation against the plain pipeline.
+   "full" is held against its plain version (and "full" timed with its
+   bound: the acceptance test's overflow pass), and the first step's
+   action and observation against the plain pipeline.
 12. K2 (``adj_matmul``) against its plain version on the card: (a) the
    trainer's batch, B=16, N=4096, F=6 (FlockingLarge-v0 reset draws), raw
    and mean-pooled; (b) a cross-block tile, rows 0..999 against columns
    600..1299 (the ids overlap), F=16; (c) dH of both pool modes and of the
    block form's swapped-operand backward at B=4, N=4096, F=6, against
-   ``torch.autograd`` of the plain version.  Tolerances: the degree
-   exactly; outputs and gradients max |k - p| / (1 + |p|) < 1e-6 (both sum
-   in f64 and round once).  Kernel and plain times at (a).
+   ``torch.autograd`` of the plain version; (d) the edge-case swarms of
+   ``edge_swarms`` and one with a NaN position, at comm radii 0.9 and 2.0;
+   (e) a ragged block (rows 130..1036 against columns 0..999, so each
+   row's own column lies in the second tile) at F in ``ADJ_WIDTHS``.
+   Tolerances: the degree exactly; outputs and gradients max |k - p| /
+   (1 + |p|) < 1e-6 (both sum in f64 and round once).  Kernel and plain
+   times at (a), and the kernel's at (b)'s tile at F=16 and F=8 (the cost
+   of a second chunk of features), each with its launch geometry and
+   bound.
 13. K4 (``sparse_adj``) against its plain version, same tolerances, on
    sorted operands of phase 9's states: (a) N=65,536, B=1 with the table
    the aggregation builds (at sqrt(comm_radius2), no skin) and with phase
    9's Verlet table; (b) N=16,384, B=16, where the degree through the
    table must equal dense K2's; (c) dH through ``adjacency_matmul_sparse``
    on 4 of (b)'s swarms, both pool modes; (d) phase 11's reset state
-   (N=16,384, B=4), whose table overflows: the pass must run on dense K2.
-   Kernel and plain times at (a) and (b).
+   (N=16,384, B=4), whose table overflows: the pass must run on dense K2;
+   (e) the edge-case swarms and a NaN position at comm radii 0.9 and 2.0;
+   (f) a ragged table at N=1,024, B=3 (pad slots first and past the
+   listed blocks) at F in ``ADJ_WIDTHS``.  Kernel and plain times at (a)
+   and (b), each with its launch geometry and bound.
 14. main path, ``LargeFlockingImitationTrainer`` on ``FlockingLarge-v0``
    (N=4096): a batch of 4 envs x 4 steps, 5 updates.  K2 must launch
    exactly twice an update (k_hops - 1) and never for a backward pass
@@ -395,20 +409,28 @@ def phase_kernel_check(device: str, shapes, timed) -> dict:
             else:
                 err = compare_sums(got, want, channels)
             worst = {k: max(worst[k], err[k]) for k in worst}
-    timings = []
-    for b, n, channels in timed:
-        x = draw_swarms(b, n, device, SEED + n)
-        ms = time_ms(lambda: k1.flocking_sums_block(x, x, 0, 0, cr, cr2, channels=channels))
-        plain = time_ms(lambda: k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr2, channels))
-        blocks, threads, groups = k1.launch_grid(b, n, n)
-        pairs, hits = k1_pair_counts(x, x, 0, 0, cr, cr2)
-        timings.append({"B": b, "N": n, "channels": channels, "ms": ms, "plain_ms": plain,
-                        "gpairs_per_s": b * n * n / (ms * 1e6),
-                        "blocks": blocks, "threads": threads, "groups": groups,
-                        "warps_per_sm": warps_per_sm(blocks, threads),
-                        **pair_bound(pairs, hits, nbytes(x) + b * n * 16 * 4),
-                        "library_ms": None})
+    timings = [k1_timing(draw_swarms(b, n, device, SEED + n), cr, cr2, channels, plain=True)
+               for b, n, channels in timed]
     return {"worst": worst, "cases": len(cases) * 2, "timings": timings}
+
+
+def k1_timing(x, cr, cr2, channels: str, plain: bool) -> dict:
+    """K1's time over every pair of the swarms ``x`` (and its plain
+    version's where ``plain``), its launch geometry and its bound."""
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+    b, n, _ = x.shape
+    res = {"B": b, "N": n, "channels": channels,
+           "ms": time_ms(lambda: k1.flocking_sums_block(x, x, 0, 0, cr, cr2, channels=channels))}
+    if plain:
+        res["plain_ms"] = time_ms(
+            lambda: k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr2, channels))
+    blocks, threads, groups = k1.launch_grid(b, n, n)
+    pairs, hits = k1_pair_counts(x, x, 0, 0, cr, cr2)
+    res.update(gpairs_per_s=b * n * n / (res["ms"] * 1e6), blocks=blocks, threads=threads,
+               groups=groups, warps_per_sm=warps_per_sm(blocks, threads),
+               **pair_bound(pairs, hits, nbytes(x) + b * n * 16 * 4), library_ms=None)
+    return res
 
 
 def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
@@ -468,9 +490,11 @@ def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     env.expert_rollout(final, params, n_steps)
     _sync()
     roll_s = time.perf_counter() - t1
+    view = check_strided_state(env, params, final.x)
     n = params.n_agents
     return {
         "launches": launches, "reset_tries": tries, "u_err": u_err, "values_rel": v_rel,
+        "strided_state": view,
         "seconds": seconds, "rollout_seconds": roll_s,
         "env_steps_per_s": n_envs * n_steps / seconds,
         "agent_steps_per_s": n_envs * n_steps * n / seconds,
@@ -478,6 +502,33 @@ def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
         "rollout_agent_steps_per_s": n_envs * n_steps * n / roll_s,
         "mean_reward": float(traj["reward"].mean()),
     }
+
+
+def check_strided_state(env, params, x) -> dict:
+    """Two fused steps from ``init_state`` of ``wide[..., 1:]`` of a ``[B,
+    N, 5]`` tensor (strided, and 4 bytes into its storage): K1 runs on a
+    copy, and the rollout equals the one from a contiguous copy of ``x``."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+    wide = torch.zeros(x.shape[:-1] + (5,), dtype=x.dtype, device=x.device)
+    wide[..., 1:] = x
+    view = wide[..., 1:]
+    if view.is_contiguous() or view.data_ptr() % 16 == 0:
+        raise AssertionError("the view is contiguous or 16-byte aligned")
+    before = k1.launches
+    got_final, got = env.expert_rollout(env.init_state(view, params), params, 2)
+    _sync()
+    launches = k1.launches - before
+    if launches != 3:
+        raise AssertionError(f"{launches} K1 launches for 2 fused steps from the view, want 3")
+    want_final, want = env.expert_rollout(env.init_state(x.clone(), params), params, 2)
+    _sync()
+    if not (torch.equal(got_final.x, want_final.x)
+            and all(torch.equal(got[k], want[k]) for k in want)):
+        raise AssertionError("the rollout from the strided view differs from the copy's")
+    return {"k1_launches": launches, "equal_to_copy": True}
 
 
 def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
@@ -613,8 +664,8 @@ def phase_sparse_kernel_check(device: str, shapes) -> dict:
         res.update(pair_bound(*k3_pair_counts(xs, table, cr, cr2),
                               nbytes(xs, table) + b * n * 16 * 4))
         res["library_ms"] = None
-        if b == 1:
-            res["dense_k1_ms"] = time_ms(lambda: k1.flocking_sums(x, cr, cr2))
+        if b == 1:  # the overflow branch's pass at this shape
+            res["dense_k1"] = k1_timing(x, cr, cr2, "core", plain=False)
         timings.append(res)
     return {"worst": worst, "cases": len(cases) * 3, "k1_dense_a": k1_a, "timings": timings}
 
@@ -775,6 +826,8 @@ def phase_sparse_reset(device: str, n_envs: int, n_steps: int, **overrides) -> d
         "k3_launches": k3_launches, "k1_launches": k1_launches, "overflowing_passes": overflowed,
         "passes": passes, "reset_tries": tries, "verlet_rebuilds": rebuilds,
         "k1_core_vs_plain": k1_core, "k1_full_vs_plain": k1_full, **first,
+        # the acceptance test's overflow pass at this shape
+        "k1_full_timing": k1_timing(x0, cr, cr2, "full", plain=False),
         "seconds": seconds, "rollout_seconds": roll_s,
         "agent_steps_per_s": n_envs * n_steps * n / seconds,
         "rollout_agent_steps_per_s": n_envs * n_steps * n / roll_s,
@@ -1001,15 +1054,67 @@ def grad_pair(fn, plain_fn, h, cotangent):
     return grads
 
 
+def adj_edge_swarms(name: str, cr: float, device: str):
+    """``edge_swarms`` for K2 and K4, and ``"nan position"``: "band" with
+    agent 5's position NaN, a neighbour of nobody."""
+    import torch
+
+    x = edge_swarms("band" if name == "nan position" else name, cr)
+    if name == "nan position":
+        x[:, 5, :2] = float("nan")
+    return torch.from_numpy(x).to(device)
+
+
+ADJ_EDGE_CASES = EDGE_CASES + ("nan position",)
+ADJ_WIDTHS = (1, 6, 8, 9, 16)  # feature widths held against the plain versions
+
+
+def k2_timing(name: str, xr, xc, h, ro: int, co: int, plain: bool) -> dict:
+    """K2's time on these operands (and its plain version's where
+    ``plain``), its launch geometry and its bound: the test on every pair,
+    2F+1 flops a neighbour pair; the operands read once, the sums and the
+    degree written once."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+
+    b, m, _ = xr.shape
+    k, f = xc.shape[1], h.shape[-1]
+    res = {"case": name, "B": b, "m": m, "k": k, "F": f,
+           "ms": time_ms(lambda: k2.adjacency_matmul_block(xr, xc, h, ro, co, CR2))}
+    if plain:
+        res["plain_ms"] = time_ms(
+            lambda: k2.adjacency_matmul_block_reference(xr, xc, h, ro, co, CR2))
+    neighbours = int(k2.adjacency_matmul_block(xr, xc, h, ro, co, CR2)[1].sum())
+    ids = torch.arange(m, device=xr.device)[:, None] + ro
+    pairs = b * int((ids != torch.arange(k, device=xr.device) + co).sum())
+    blocks, threads, groups = k2.launch_grid(b, m, k)
+    res.update(gpairs_per_s=b * m * k / (res["ms"] * 1e6), blocks=blocks, threads=threads,
+               groups=groups, warps_per_sm=warps_per_sm(blocks, threads),
+               launches_a_call=-(-f // 8), pairs=pairs, pairs_in_reach=neighbours,
+               **bound(PAIR_TEST_FLOPS * pairs + (2 * f + 1) * neighbours,
+                       nbytes(xr, xc, h) + b * m * (f + 1) * 4),
+               library_ms=None)
+    return res
+
+
 def phase_adj_check(device: str, b: int, n: int, f: int) -> dict:
     """Phase 12: K2 against its plain version, forward and backward, at
-    ``(b, n, f)``, a cross-block tile and the gradients."""
+    ``(b, n, f)``, a cross-block tile, the gradients, the edge-case swarms
+    and a ragged block at each of ``ADJ_WIDTHS``."""
     import torch
 
     from gym_flock_tpu_torch.ops import adjacency_matmul as k2
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     err = AdjErrors()
+
+    def check_block(xr, xc, hc, ro, co, cr2):
+        out, deg = k2.adjacency_matmul_block(xr, xc, hc, ro, co, cr2)
+        want, want_deg = k2.adjacency_matmul_block_reference(xr, xc, hc, ro, co, cr2)
+        _sync()
+        compare_deg(deg, want_deg)
+        err.check(out, want)
 
     # (a) the trainer's batch: FlockingLarge-v0 reset draws
     x = draw_swarms(b, n, device, SEED + n)
@@ -1056,19 +1161,31 @@ def phase_adj_check(device: str, b: int, n: int, f: int) -> dict:
     if backward != 3:
         raise AssertionError(f"{backward} K2 backward launches for 3 gradients")
 
-    ms = time_ms(lambda: k2.adjacency_matmul_block(x, x, h, 0, 0, CR2))
-    plain = time_ms(lambda: k2.adjacency_matmul_block_reference(x, x, h, 0, 0, CR2))
-    # its bound: the test on every pair, 2F+1 flops a neighbour pair; x and
-    # h read, the sums and the degree written
-    neighbours = int(want_deg.sum())
-    return {"max_rel": err.rel, "max_abs_err": err.abs,
-            "backward_launches": backward, "mean_degree": mean_deg,
-            "timing": {"case": f"B={b},N={n},F={f}", "ms": ms, "plain_ms": plain,
-                       "gpairs_per_s": b * n * n / (ms * 1e6),
-                       "pairs": b * n * n, "pairs_in_reach": neighbours,
-                       **bound(PAIR_TEST_FLOPS * b * n * n + (2 * f + 1) * neighbours,
-                               nbytes(x, h) + b * n * (f + 1) * 4),
-                       "library_ms": None}}
+    # (d) the edge-case swarms (and a NaN position) at two radii: degrees
+    # exact, sums as the plain version's
+    cases = 0
+    for radius in (0.9, 2.0):
+        for name in ADJ_EDGE_CASES:
+            xe = adj_edge_swarms(name, radius, device)
+            he = torch.randn(xe.shape[:2] + (6,), generator=gen, device=device)
+            check_block(xe, xe, he, 0, 0, radius * radius)
+            cases += 1
+    # (e) a ragged block at each width: rows 130..1036 against columns
+    # 0..999, so each row's own column lies in the second tile
+    for width in ADJ_WIDTHS:
+        hw = torch.randn(3, 1000, width, generator=gen, device=device)
+        check_block(xb[:, 130:1037].contiguous(), xb[:, :1000].contiguous(), hw, 130, 0, CR2)
+        cases += 1
+
+    timings = [k2_timing(f"B={b},N={n},F={f}", x, x, h, 0, 0, plain=True)]
+    # the cost of F > 8 (one launch a chunk of 8 features, each repeating
+    # the test): (b)'s tile at F=16 and at F=8
+    xr, xc = xb[:, :1000].contiguous(), xb[:, 600:].contiguous()
+    for width in (16, 8):
+        timings.append(k2_timing(f"(b) B=3,1000x700,F={width}", xr, xc,
+                                 hb[:, 600:, :width].contiguous(), 0, 600, plain=False))
+    return {"max_rel": err.rel, "max_abs_err": err.abs, "edge_and_width_cases": cases,
+            "backward_launches": backward, "mean_degree": mean_deg, "timings": timings}
 
 
 def phase_sparse_adj_check(device: str, shapes, **reset_overrides) -> dict:
@@ -1086,9 +1203,9 @@ def phase_sparse_adj_check(device: str, shapes, **reset_overrides) -> dict:
     err = AdjErrors()
     timings = []
 
-    def check_sorted(name, xs, hs, table, time_it):
-        out, deg = sf.sparse_adj_sorted(xs, hs, table, CR2)
-        want, want_deg = sf.sparse_adj_sorted_reference(xs, hs, table, CR2)
+    def check_sorted(name, xs, hs, table, time_it, cr2=CR2):
+        out, deg = sf.sparse_adj_sorted(xs, hs, table, cr2)
+        want, want_deg = sf.sparse_adj_sorted_reference(xs, hs, table, cr2)
         _sync()
         compare_deg(deg, want_deg)
         err.check(out, want)
@@ -1102,9 +1219,15 @@ def phase_sparse_adj_check(device: str, shapes, **reset_overrides) -> dict:
             res["plain_ms"] = time_ms(lambda: sf.sparse_adj_sorted_reference(xs, hs, table,
                                                                              CR2))
             res["gpairs_per_s"] = pairs / (res["ms"] * 1e6)
+            blocks, threads, groups = sf.adj_launch_grid(b, n, table.shape[-1])
+            res.update(blocks=blocks, threads=threads, groups=groups,
+                       warps_per_sm=warps_per_sm(blocks, threads))
+            # the test on every listed pair (the self pairs excluded), 2F+1
+            # flops a neighbour pair
+            listed, _ = k3_pair_counts(xs, table, 0.0, 0.0)
             neighbours = int(want_deg.sum())
             res["pairs_in_reach"] = neighbours
-            res.update(bound(PAIR_TEST_FLOPS * pairs + (2 * hs.shape[-1] + 1) * neighbours,
+            res.update(bound(PAIR_TEST_FLOPS * listed + (2 * hs.shape[-1] + 1) * neighbours,
                              nbytes(xs, hs, table) + b * n * (hs.shape[-1] + 1) * 4))
             res["library_ms"] = None
             timings.append(res)
@@ -1130,6 +1253,28 @@ def phase_sparse_adj_check(device: str, shapes, **reset_overrides) -> dict:
     _, deg_s = sf.sparse_adj_sorted(xs, hs, table, CR2)
     _, deg_d = k2.adjacency_matmul_block(x, x, h, 0, 0, CR2)
     compare_deg(sf.unsort(deg_s[..., None], perm)[..., 0], deg_d)
+
+    # (e) the edge-case swarms (and a NaN position) at two radii, sorted and
+    # tabled at the radius; (f) a ragged table at N=1,024, B=3 (pad slots
+    # first and past the listed blocks) at each of ADJ_WIDTHS
+    cases = 0
+    for radius in (0.9, 2.0):
+        for name in ADJ_EDGE_CASES:
+            xe = adj_edge_swarms(name, radius, device)
+            pe = sf.hilbert_order(xe, radius)
+            xes = sf.permute(xe, pe)
+            he = torch.randn(xe.shape[:2] + (6,), generator=gen, device=device)
+            check_sorted(f"{name} cr={radius}", xes, he,
+                         sf.block_pair_table(xes, radius, 16)[0], False, cr2=radius * radius)
+            cases += 1
+    xq = bench_state(3, 1024, SEED + 3, device)
+    xrs = sf.permute(xq, sf.hilbert_order(xq, cr))
+    table_r, _ = sf.block_pair_table(xrs, cr, 16)
+    ragged = torch.cat([table_r.flip(-1), torch.full_like(table_r[..., :3], -1)], dim=-1)
+    for width in ADJ_WIDTHS:
+        hw = torch.randn(3, 1024, width, generator=gen, device=device)
+        check_sorted(f"ragged B=3,N=1024,F={width}", xrs, hw, ragged.contiguous(), False)
+        cases += 1
 
     # (c) dH through the pipeline on 4 of (b)'s swarms, both pool modes
     xg, hg = x[:4].contiguous(), h[:4].contiguous()
@@ -1160,7 +1305,8 @@ def phase_sparse_adj_check(device: str, shapes, **reset_overrides) -> dict:
                              f"want (0, 1, 1)")
     dense_rel = err.check(got, plain_adjacency_matmul_sparse(x0, h0, CR2, True))
     return {"max_rel": err.rel, "max_abs_err": err.abs, "backward_launches": backward,
-            "reset_state_on_k2": {"max_rel": dense_rel}, "timings": timings}
+            "edge_and_width_cases": cases, "reset_state_on_k2": {"max_rel": dense_rel},
+            "timings": timings}
 
 
 def phase_large_train(device: str, n_envs: int, n_steps: int, n_updates: int,
@@ -1543,12 +1689,12 @@ def main() -> int:
         "backward_launches": t14["k2_backward_launches"],
         "checked_backward_launches": a2["backward_launches"],
         "max_abs_err": a2["max_abs_err"],
-        "ms": a2["timing"]["ms"],
-        "plain_ms": a2["timing"]["plain_ms"],
-        "bound_ms": a2["timing"]["bound_ms"],
-        "bound_by": a2["timing"]["bound_by"],
+        "ms": a2["timings"][0]["ms"],
+        "plain_ms": a2["timings"][0]["plain_ms"],
+        "bound_ms": a2["timings"][0]["bound_ms"],
+        "bound_by": a2["timings"][0]["bound_by"],
         "library_ms": None,
-        "timings": [a2["timing"]],
+        "timings": a2["timings"],
     }, {
         "name": "sparse_adj",
         "route": "cuda",

@@ -52,37 +52,11 @@ namespace {
 using gft::kTile;
 using gft::kWarp;
 
-// K1's tiles: the column range in order, tiles g, g + groups, ...
-struct ColumnTiles {
-  const float4* xc;  // this swarm's columns
-  int k;
-  int group;
-  int groups;
-  long long self_j;  // local column index of the row's own global id
-  long long self_first;  // ... of the warp's first row
-  int rows;              // the warp's rows (lanes past m have none)
-
-  __device__ int first() const { return group; }
-  __device__ int next(int it) const { return it + groups; }
-  __device__ bool valid(int it) const { return it < (k + kTile - 1) / kTile; }
-  __device__ const float4* src(int it) const { return xc + static_cast<size_t>(it) * kTile; }
-  __device__ int cols(int it) const { return min(kTile, k - it * kTile); }
-  __device__ int self(int it) const {
-    const long long d = self_j - static_cast<long long>(it) * kTile;
-    return (d >= 0 && d < kTile) ? static_cast<int>(d) : -1;
-  }
-  // the warp's own columns are consecutive: does tile it hold one of them?
-  __device__ bool any_self(int it) const {
-    const long long d = self_first - static_cast<long long>(it) * kTile;
-    return d < kTile && d + rows > 0;
-  }
-};
-
 template <bool kFull>
 __global__ void __launch_bounds__(gft::kMaxThreads, 4)
 block_sums_kernel(const float4* __restrict__ xr, const float4* __restrict__ xc,
                   float4* __restrict__ out, int m, int k, int row_offset, int col_offset,
-                  float cr, float cr2, float cut, int groups) {
+                  gft::Reach reach, int groups) {
   extern __shared__ float4 smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -97,13 +71,12 @@ block_sums_kernel(const float4* __restrict__ xr, const float4* __restrict__ xc,
   if (row0 < m) {  // warp-uniform
     const float4 me = active ? xr[static_cast<size_t>(b) * m + i] : make_float4(0.f, 0.f, 0.f, 0.f);
     const long long self_first = static_cast<long long>(row_offset) + row0 - col_offset;
-    const ColumnTiles seq{xc + static_cast<size_t>(b) * k, k, group, groups,
+    const gft::ColumnTiles seq{xc + static_cast<size_t>(b) * k, k, group, groups,
                           self_first + lane, self_first, min(kWarp, m - row0)};
-    gft::run_tiles(acc, me, active, smem + warp * gft::kWarpSmem, lane, seq, cr, cr2, cut);
+    gft::run_tiles(acc, me, active, smem + warp * decltype(acc)::kWarpFloat4s, lane, seq, reach);
   }
-  gft::combine_and_store(acc, smem, warp, group, groups, lane,
-                         active ? out + (static_cast<size_t>(b) * m + i) * (gft::kOut / 4)
-                                : nullptr);
+  gft::combine_and_store(acc, smem, warp, group, groups, lane, active,
+                         out + (static_cast<size_t>(b) * m + i) * (gft::kOut / 4));
 }
 
 gft::Plan block_sums_plan(int b, int m, int k) {
@@ -117,18 +90,18 @@ int launch_block_sums(const void* xr, const void* xc, void* out, int b, int m, i
   const int row_warps = (m + kWarp - 1) / kWarp;
   const dim3 grid((row_warps + p.row_warps - 1) / p.row_warps, b);
   const int threads = p.warps() * kWarp;
-  const size_t smem = p.smem_bytes();
+  const size_t smem = p.smem_bytes(2 * gft::kTile);  // two tiles of float4 rows
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* r = static_cast<const float4*>(xr);
   const float4* c = static_cast<const float4*>(xc);
   float4* o = static_cast<float4*>(out);
-  const float cut = gft::hit_cut(cr, cr2);
+  const gft::Reach reach = gft::make_reach(cr, cr2);
   if (full) {
     block_sums_kernel<true><<<grid, threads, smem, s>>>(r, c, o, m, k, row_offset, col_offset,
-                                                        cr, cr2, cut, p.groups);
+                                                        reach, p.groups);
   } else {
     block_sums_kernel<false><<<grid, threads, smem, s>>>(r, c, o, m, k, row_offset, col_offset,
-                                                         cr, cr2, cut, p.groups);
+                                                         reach, p.groups);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,90 +15,93 @@
 // pass is this kernel again on the cotangent (the adjacency and the table
 // are symmetric), composed by the wrapper in ops/sparse_flocking.py.
 //
-// What bounds it: the pair test on every listed pair (about 6 f32
-// operations) and F adds per neighbour pair.  It reads each listed column
-// block ((2 + F) * 4 bytes an agent) once per row block, so the bytes are
-// few.  Known limits, left for later work:
-// * at N=65,536 and B=1 the grid has only 512 blocks of 128 threads for
-//   132 SMs;
-// * the gathers of xs and hs through the permutation and the scatter of the
-//   result back to agent order run outside the kernel, as further passes.
+// What bounds it: the pair test on every listed pair (about 6
+// instructions, 5 flops) and F f32->f64 conversions and adds on the
+// neighbour pairs only (~0.3% of the listed pairs of bench metric 4's
+// table).  At N=65,536 and B=1 the table rows are uneven (14 slots against
+// a mean of 8), so one block walking a whole row would let the longest rows
+// set the time.  It reads each listed column block ((4 + F) * 4 bytes an
+// agent) once per row warp, so the bytes are few.  The old design (grid
+// (n_b, B), one row a thread, a block-synchronous staging of each slot's
+// positions and 8 features, 8 f64 adds on every column where some lane hit)
+// put ~15 warps on an SM and walked each row serially.  Left for later work:
+// the gathers of xs and hs through the permutation and the scatter of the
+// result back to agent order run outside the kernel, as further passes.
 //
-// Design.  Grid (n_b, B, ceil(F/8)), 128 threads; each thread owns one sorted
-// row agent and keeps 8 feature sums in registers.  The block walks over its
-// row of the table: this loop replaces the TPU's sequential k grid axis and
-// its scalar prefetch.  A slot is block-uniform, so a pad slot (or any entry
-// outside [0, n_b)) is skipped whole, and __syncthreads stays uniform.  A
-// listed column block is staged in shared memory: positions as SoA and the
-// block's 8 feature columns of hs.  No atomics, so the result is
-// deterministic.
+// Design (the pair loop of csrc/flocking_pairs.cuh, K3's table walk and K2's
+// tile pass): a warp owns 32 sorted row agents of one row block, one a lane,
+// and walks the column blocks its table row lists, each staged in shared
+// memory by cp.async, double-buffered: a test pass over every listed pair
+// (r2 < cr2) sets the lane's hit mask, the self pair (same block, same lane)
+// is cleared, the degree is the mask's popcount, and the body adds the kF
+// features of each hit's hs row in f64, in increasing column order, from
+// shared memory: a listed block's 128 rows of hs are staged beside its
+// positions (K2's tiles, 8 KB a warp at F = 6).  When the batch is too small to fill the card
+// (B=1 at N=65,536), a row's listed blocks are dealt round-robin to 1-8
+// warps of the block; the partials are added in group order in shared
+// memory.  Pad slots (and any entry outside [0, n_b)) are skipped, uniformly
+// across the warp.  No atomics, so the result is deterministic.  F > 8 runs
+// one launch for each chunk of 8 features.
 // * r2 is formed with __fmul_rn/__fadd_rn, so no FMA contraction moves it
 //   across the radius: the degree equals the plain version's exactly.
 // * The sums accumulate in f64 (the TPU kernel's MXU accumulates in f32), as
 //   the plain version's do, and are rounded to f32 once at the end.
-#include <cuda_runtime.h>
+#include "flocking_pairs.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;  // agents per block of the table = threads per block
-constexpr int kFeat = 8;     // feature columns per block; grid z walks over F
+using gft::kTile;
+using gft::kWarp;
 
-__global__ void __launch_bounds__(kBlock)
-sparse_adj_kernel(const float* __restrict__ xs, const float* __restrict__ hs,
+constexpr int kFeat = 8;  // features summed by one launch
+
+template <int kF>
+__global__ void __launch_bounds__(gft::kMaxThreads, 3)
+sparse_adj_kernel(const float4* __restrict__ xs, const float* __restrict__ hs,
                   const int* __restrict__ table, float* __restrict__ out,
-                  float* __restrict__ deg, int n, int k_max, int f, float cr2) {
-  __shared__ float spx[kBlock], spy[kBlock];
-  __shared__ float sh[kBlock][kFeat];
-  const int n_b = n / kBlock;
+                  float* __restrict__ deg, int n, int k_max, int f, int f0, float cr2,
+                  bool whole_rows, int groups) {
+  extern __shared__ float4 smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int group = warp % groups;
+  const int row_warps = blockDim.x / (kWarp * groups);
+  const int row0 = (blockIdx.x * row_warps + warp / groups) * kWarp;
   const int b = blockIdx.y;
-  const int i = blockIdx.x;
-  const int f0 = blockIdx.z * kFeat;
-  const int nf = min(kFeat, f - f0);
-  const int tid = threadIdx.x;
-  const float4* xb = reinterpret_cast<const float4*>(xs) + static_cast<size_t>(b) * n;
-  const float* hb = hs + static_cast<size_t>(b) * n * f;
-  const int* slots = table + (static_cast<size_t>(b) * n_b + i) * k_max;
+  const int n_b = n / kTile;
+  const bool active = row0 < n;  // warp-uniform: n is a multiple of 128
+  const int i = row0 + lane;
 
-  const float4 me = xb[static_cast<size_t>(i) * kBlock + tid];
-  double acc[kFeat];
-#pragma unroll
-  for (int c = 0; c < kFeat; ++c) acc[c] = 0.0;
-  int d = 0;
-
-  for (int s = 0; s < k_max; ++s) {
-    const int j = slots[s];
-    if (j < 0 || j >= n_b) continue;  // block-uniform: the whole block skips
-    const float4 c = xb[static_cast<size_t>(j) * kBlock + tid];
-    spx[tid] = c.x;
-    spy[tid] = c.y;
-    const float* hj = hb + static_cast<size_t>(j) * kBlock * f;
-    for (int e = tid; e < kBlock * kFeat; e += kBlock) {
-      const int t = e / kFeat;
-      const int q = e % kFeat;
-      sh[t][q] = q < nf ? hj[static_cast<size_t>(t) * f + f0 + q] : 0.f;
-    }
-    __syncthreads();
-    const int self_t = (j == i) ? tid : -1;
-    for (int t = 0; t < kBlock; ++t) {
-      const float dx = spx[t] - me.x;
-      const float dy = spy[t] - me.y;
-      const float r2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-      if (r2 < cr2 && t != self_t) {
-        ++d;
-#pragma unroll
-        for (int q = 0; q < kFeat; ++q) acc[q] += static_cast<double>(sh[t][q]);
-      }
-    }
-    __syncthreads();
+  gft::AdjSums<kF> acc;
+  if (active) {
+    const float4* xb = xs + static_cast<size_t>(b) * n;
+    const int blk = i / kTile;
+    const gft::ListedBlocks seq{xb, table + (static_cast<size_t>(b) * n_b + blk) * k_max,
+                                k_max, n_b, group, groups, blk, i % kTile};
+    const gft::AdjArgs args{hs + static_cast<size_t>(b) * n * f, f, f0, cr2, whole_rows};
+    gft::run_tiles(acc, xb[i], true, smem + warp * decltype(acc)::kWarpFloat4s, lane, seq,
+                   args);
   }
+  const size_t row = static_cast<size_t>(b) * n + i;
+  gft::combine_and_store(acc, smem, warp, group, groups, lane, active,
+                         gft::AdjOut{out + row * f + f0, f0 == 0 ? deg + row : nullptr});
+}
 
-  const size_t row = static_cast<size_t>(b) * n + static_cast<size_t>(i) * kBlock + tid;
-  float* o = out + row * f + f0;
-#pragma unroll
-  for (int q = 0; q < kFeat; ++q) {
-    if (q < nf) o[q] = static_cast<float>(acc[q]);
-  }
-  if (blockIdx.z == 0) deg[row] = static_cast<float>(d);
+gft::Plan sparse_adj_plan(int b, int n, int k_max) {
+  return gft::plan_split(b, n / kWarp, k_max);
+}
+
+template <int kF>
+int launch_chunk(const gft::Plan& p, const dim3& grid, cudaStream_t s, const float4* x,
+                 const float* h, const int* tb, float* o, float* d, int n, int k_max, int f,
+                 int f0, float cr2, bool whole_rows) {
+  const size_t smem = p.smem_bytes(gft::AdjSums<kF>::kWarpFloat4s);
+  const int e =
+      gft::allow_smem<sparse_adj_kernel<kF>>(gft::kMaxWarps * gft::AdjSums<kF>::kWarpFloat4s);
+  if (e != 0) return e;
+  sparse_adj_kernel<kF><<<grid, p.warps() * kWarp, smem, s>>>(x, h, tb, o, d, n, k_max, f, f0,
+                                                              cr2, whole_rows, p.groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -106,15 +109,47 @@ sparse_adj_kernel(const float* __restrict__ xs, const float* __restrict__ hs,
 // Launches K4 on `stream` and returns cudaGetLastError() (0 on success).
 // xs [b,n,4] f32 (16-byte aligned), hs [b,n,f] f32, table [b,n/128,k_max]
 // int32, out [b,n,f] f32 and deg [b,n] f32 are contiguous device buffers; n is
-// a multiple of 128, b <= 65535 and ceil(f/8) <= 65535.
+// a multiple of 128 and b <= 65535.  One kernel launch for each chunk of 8
+// features.
 extern "C" int gft_sparse_adj(const void* xs, const void* hs, const void* table, void* out,
                               void* deg, int b, int n, int k_max, int f, float cr2,
                               void* stream) {
   if (b == 0 || n == 0 || f == 0) return 0;
-  const dim3 grid(n / kBlock, b, (f + kFeat - 1) / kFeat);
-  sparse_adj_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xs), static_cast<const float*>(hs),
-      static_cast<const int*>(table), static_cast<float*>(out), static_cast<float*>(deg), n,
-      k_max, f, cr2);
-  return static_cast<int>(cudaGetLastError());
+  const gft::Plan p = sparse_adj_plan(b, n, k_max);
+  const int row_warps = n / kWarp;
+  const dim3 grid((row_warps + p.row_warps - 1) / p.row_warps, b);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* x = static_cast<const float4*>(xs);
+  const float* h = static_cast<const float*>(hs);
+  const int* tb = static_cast<const int*>(table);
+  float* o = static_cast<float*>(out);
+  float* d = static_cast<float*>(deg);
+  // one run of 16-byte words a tile: a single chunk and hs 16-byte aligned
+  // (n is a multiple of 128, so every swarm's and block's rows are too)
+  const bool whole_rows = f <= kFeat && reinterpret_cast<uintptr_t>(hs) % 16 == 0;
+  for (int f0 = 0; f0 < f; f0 += kFeat) {
+    int rc = 0;
+    switch (std::min(kFeat, f - f0)) {
+#define GFT_CHUNK(nf)                                                                   \
+  case nf:                                                                              \
+    rc = launch_chunk<nf>(p, grid, s, x, h, tb, o, d, n, k_max, f, f0, cr2, whole_rows); \
+    break;
+      GFT_CHUNK(1) GFT_CHUNK(2) GFT_CHUNK(3) GFT_CHUNK(4)
+      GFT_CHUNK(5) GFT_CHUNK(6) GFT_CHUNK(7) GFT_CHUNK(8)
+#undef GFT_CHUNK
+    }
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// The launch geometry gft_sparse_adj takes at this shape: grid[0] blocks,
+// grid[1] threads a block, grid[2] warps that split a row's listed blocks,
+// each launch (one for each chunk of 8 features).
+extern "C" void gft_sparse_adj_grid(int b, int n, int k_max, int* grid) {
+  const gft::Plan p = sparse_adj_plan(b, n, k_max);
+  const int row_warps = n / kWarp;
+  grid[0] = b * ((row_warps + p.row_warps - 1) / p.row_warps);
+  grid[1] = p.warps() * kWarp;
+  grid[2] = p.groups;
 }

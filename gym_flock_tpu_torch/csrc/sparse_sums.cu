@@ -50,42 +50,10 @@ using gft::kWarp;
 
 enum ChannelSet { kCore = 0, kExpert = 1, kFull = 2 };
 
-// K3's tiles: the listed slots of one table row, the group-th, then every
-// groups-th.  A cursor is a slot index; k_max ends the walk.
-struct ListedBlocks {
-  const float4* xb;  // this swarm's sorted agents
-  const int* slots;  // the row block's table row
-  int k_max;
-  int n_b;
-  int group;
-  int groups;
-  int row_block;
-  int self_lane;  // the row's lane within its block
-
-  // the slot of the (skip + 1)-th listed block after slot s, or k_max
-  __device__ int after(int s, int skip) const {
-    for (++s; s < k_max; ++s) {
-      const int j = __ldg(slots + s);
-      if (j >= 0 && j < n_b && skip-- == 0) break;
-    }
-    return s;
-  }
-  __device__ int first() const { return after(-1, group); }
-  __device__ int next(int s) const { return after(s, groups - 1); }
-  __device__ bool valid(int s) const { return s < k_max; }
-  __device__ const float4* src(int s) const {
-    return xb + static_cast<size_t>(__ldg(slots + s)) * kTile;
-  }
-  __device__ int cols(int) const { return kTile; }
-  __device__ int self(int s) const { return any_self(s) ? self_lane : -1; }
-  __device__ bool any_self(int s) const { return __ldg(slots + s) == row_block; }
-};
-
 template <int kSet>
 __global__ void __launch_bounds__(gft::kMaxThreads, 4)
 sparse_sums_kernel(const float4* __restrict__ xs, const int* __restrict__ table,
-                   float4* __restrict__ out, int n, int k_max, float cr, float cr2, float cut,
-                   int groups) {
+                   float4* __restrict__ out, int n, int k_max, gft::Reach reach, int groups) {
   extern __shared__ float4 smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -101,13 +69,12 @@ sparse_sums_kernel(const float4* __restrict__ xs, const int* __restrict__ table,
   if (active) {
     const float4* xb = xs + static_cast<size_t>(b) * n;
     const int blk = i / kTile;
-    const ListedBlocks seq{xb, table + (static_cast<size_t>(b) * n_b + blk) * k_max,
+    const gft::ListedBlocks seq{xb, table + (static_cast<size_t>(b) * n_b + blk) * k_max,
                            k_max, n_b, group, groups, blk, i % kTile};
-    gft::run_tiles(acc, xb[i], true, smem + warp * gft::kWarpSmem, lane, seq, cr, cr2, cut);
+    gft::run_tiles(acc, xb[i], true, smem + warp * decltype(acc)::kWarpFloat4s, lane, seq, reach);
   }
-  gft::combine_and_store(acc, smem, warp, group, groups, lane,
-                         active ? out + (static_cast<size_t>(b) * n + i) * (gft::kOut / 4)
-                                : nullptr);
+  gft::combine_and_store(acc, smem, warp, group, groups, lane, active,
+                         out + (static_cast<size_t>(b) * n + i) * (gft::kOut / 4));
 }
 
 gft::Plan sparse_sums_plan(int b, int n, int k_max) {
@@ -120,24 +87,22 @@ int launch_sparse_sums(const void* xs, const void* table, void* out, int b, int 
   const int row_warps = n / kWarp;
   const dim3 grid((row_warps + p.row_warps - 1) / p.row_warps, b);
   const int threads = p.warps() * kWarp;
-  const size_t smem = p.smem_bytes();
+  const size_t smem = p.smem_bytes(2 * gft::kTile);  // two tiles of float4 rows
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* x = static_cast<const float4*>(xs);
   const int* tb = static_cast<const int*>(table);
   float4* o = static_cast<float4*>(out);
-  const float cut = gft::hit_cut(cr, cr2);
+  const gft::Reach reach = gft::make_reach(cr, cr2);
   switch (set) {
     case kCore:
-      sparse_sums_kernel<kCore><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, cr, cr2, cut,
-                                                             p.groups);
+      sparse_sums_kernel<kCore><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, reach, p.groups);
       break;
     case kExpert:
-      sparse_sums_kernel<kExpert><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, cr, cr2,
-                                                               cut, p.groups);
+      sparse_sums_kernel<kExpert><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, reach,
+                                                               p.groups);
       break;
     case kFull:
-      sparse_sums_kernel<kFull><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, cr, cr2, cut,
-                                                             p.groups);
+      sparse_sums_kernel<kFull><<<grid, threads, smem, st>>>(x, tb, o, n, k_max, reach, p.groups);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

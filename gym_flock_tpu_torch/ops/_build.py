@@ -121,9 +121,13 @@ def load():
         lib.gft_sparse_sums.restype = ctypes.c_int
         lib.gft_sparse_sums_grid.argtypes = [i, i, i, p]
         lib.gft_sparse_sums_grid.restype = None
-        lib.gft_adj_matmul.argtypes = [p, i, p, i, p, p, p, i, i, i, i, i, i, f, p]
+        lib.gft_adj_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
         lib.gft_adj_matmul.restype = ctypes.c_int
+        lib.gft_adj_matmul_grid.argtypes = [i, i, i, p]
+        lib.gft_adj_matmul_grid.restype = None
         lib.gft_sparse_adj.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
         lib.gft_sparse_adj.restype = ctypes.c_int
+        lib.gft_sparse_adj_grid.argtypes = [i, i, i, p]
+        lib.gft_sparse_adj_grid.restype = None
         _lib = lib
     return _lib

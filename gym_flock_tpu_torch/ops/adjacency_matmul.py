@@ -16,24 +16,25 @@ the block form (the same kernel with operands and offsets swapped), and
 
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (``csrc/adj_matmul.cu``, built at
-first use) or raises, any other device raises.
+first use) or raises, any other device raises.  The kernel reads positions
+as 16-byte ``[.., 4]`` rows: the main path's ``[B, N, 4]`` state goes as it
+is, other widths are packed into such rows first.
 """
 from __future__ import annotations
 
 import torch
 
-# CUDA's limit on a grid's y and z axes (the batch and the feature chunks
-# here), and the pairs per chunk of the plain version, as K1's
-from gym_flock_tpu_torch.ops.flocking_sums import _CHUNK_PAIRS, _MAX_GRID_Y
+# CUDA's limit on a grid's y axis (the batch here), and the pairs per chunk
+# of the plain version, as K1's
+from gym_flock_tpu_torch.ops.flocking_sums import _CHUNK_PAIRS, _MAX_GRID_Y, float4_rows
 
 __all__ = [
     "adjacency_matmul_block_reference",
     "adjacency_matmul_block",
     "adjacency_matmul",
     "khop_aggregate",
+    "launch_grid",
 ]
-
-_FEAT_CHUNK = 8  # feature columns per block of the kernel's grid
 
 launches = 0  # K2 kernel launches in this process; only _launch adds to it
 backward_launches = 0  # those of them made for a backward pass
@@ -106,31 +107,58 @@ def _check_inputs(xr, xc, h):
         raise ValueError(f"xr, xc and h lie on {xr.device}, {xc.device}, {h.device}")
 
 
+def _position_rows(t):
+    """``[B, n, 4]`` f32 rows, 16-byte aligned, with the positions of ``t
+    [B, n, >=2]`` in columns 0 and 1: ``t`` itself when it is such a
+    tensor."""
+    if t.shape[-1] == 4:
+        return float4_rows(t)
+    rows = torch.zeros(t.shape[:-1] + (4,), dtype=torch.float32, device=t.device)
+    rows[..., :2] = t[..., :2]
+    return rows
+
+
 def _launch(xr, xc, h, row_offset, col_offset, comm_radius2, backward):
     global launches, backward_launches
     from gym_flock_tpu_torch.ops import _build
 
     b, m, _ = xr.shape
     k, f = xc.shape[1], h.shape[-1]
-    if b > _MAX_GRID_Y or -(-f // _FEAT_CHUNK) > _MAX_GRID_Y:
-        raise ValueError(f"batch {b} or F={f} exceeds the kernel grid's limit {_MAX_GRID_Y}")
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"batch {b} exceeds the kernel grid's limit {_MAX_GRID_Y}")
     h32 = h if h.dtype == torch.float32 else h.to(torch.float32)
     out = torch.empty(b, m, f, dtype=torch.float32, device=xr.device)
     deg = torch.empty(b, m, dtype=torch.float32, device=xr.device)
     if b and m:
+        rows = _position_rows(xr)
+        cols = rows if xc is xr else _position_rows(xc)
         lib = _build.load()
         with torch.cuda.device(xr.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.gft_adj_matmul(
-                xr.data_ptr(), xr.shape[-1], xc.data_ptr(), xc.shape[-1], h32.data_ptr(),
-                out.data_ptr(), deg.data_ptr(), b, m, k, f, int(row_offset),
-                int(col_offset), float(comm_radius2), stream,
+                rows.data_ptr(), cols.data_ptr(), h32.data_ptr(), out.data_ptr(),
+                deg.data_ptr(), b, m, k, f, int(row_offset), int(col_offset),
+                float(comm_radius2), stream,
             )
         if rc != 0:
             raise RuntimeError(f"K2 (adj_matmul) launch failed: CUDA error {rc}")
         launches += 1
         backward_launches += int(backward)
     return out.to(h.dtype), deg
+
+
+def launch_grid(b: int, m: int, k: int) -> tuple:
+    """``(blocks, threads a block, warps that split a row's columns)`` of
+    each of the kernel's launches (one for each chunk of 8 features) for
+    ``m`` rows against ``k`` columns in ``b`` swarms (chosen from the shape;
+    needs the built library)."""
+    import ctypes
+
+    from gym_flock_tpu_torch.ops import _build
+
+    grid = (ctypes.c_int * 3)()
+    _build.load().gft_adj_matmul_grid(b, m, k, grid)
+    return tuple(grid)
 
 
 def _adj(xr, xc, h, row_offset, col_offset, comm_radius2, backward=False):

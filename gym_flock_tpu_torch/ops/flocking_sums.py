@@ -15,7 +15,10 @@ flocking_relative.py:225).
 
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (``csrc/block_sums.cu``, built at
-first use) or raises, any other device raises.
+first use) or raises, any other device raises.  The plain version takes
+float32 or float64 and returns the input's type; the kernel takes float32
+only.  A non-contiguous or misaligned input is copied first (the kernel
+reads 16-byte rows).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ __all__ = [
     "flocking_features_large",
     "turner_controller_large",
     "launch_grid",
+    "float4_rows",
 ]
 
 N_OUT = 16
@@ -107,18 +111,35 @@ def flocking_sums_block_reference(
     return out
 
 
+def check_float_type(name: str, t: torch.Tensor) -> None:
+    """float32, or float64 on the CPU only: the plain versions follow the
+    input's type, the kernels are f32 and nothing casts silently."""
+    allowed = (torch.float32, torch.float64) if t.device.type == "cpu" else (torch.float32,)
+    if t.dtype not in allowed:
+        where = "float32 or float64 on the CPU" if t.device.type == "cpu" else "float32"
+        raise TypeError(f"{name} must be {where}, got {t.dtype} on {t.device}")
+
+
+def float4_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if it is contiguous and 16-byte aligned, as the kernels
+    read its ``[.., 4]`` rows, else a fresh contiguous copy (a view's
+    ``.contiguous()`` keeps its offset)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_inputs(xr, xc, channels):
     if channels not in _CHANNELS:
         raise ValueError(f"channels must be one of {_CHANNELS}, got {channels!r}")
     for name, t in (("xr", xr), ("xc", xc)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        check_float_type(name, t)
         if t.dim() != 3 or t.shape[-1] != 4:
             raise ValueError(f"{name} must have shape [B, n, 4], got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if xr.dtype != xc.dtype:
+        raise TypeError(f"xr is {xr.dtype}, xc {xc.dtype}")
     if xr.shape[0] != xc.shape[0]:
         raise ValueError(f"batch sizes differ: {xr.shape[0]} and {xc.shape[0]}")
     if xr.device != xc.device:
@@ -133,8 +154,6 @@ def _launch(xr, xc, row_offset, col_offset, comm_radius, comm_radius2, channels)
     k = xc.shape[1]
     if b > _MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel grid's limit {_MAX_GRID_Y}")
-    if xr.data_ptr() % 16 or xc.data_ptr() % 16:
-        raise ValueError("xr and xc must be 16-byte aligned (the kernel reads float4 rows)")
     out = torch.empty(b, m, N_OUT, dtype=torch.float32, device=xr.device)
     if b == 0 or m == 0:
         return out
@@ -184,6 +203,9 @@ def flocking_sums_block(
     ``"full"`` adds 9-11.
     """
     _check_inputs(xr, xc, channels)
+    symmetric = xc is xr
+    xr = float4_rows(xr)
+    xc = xr if symmetric else float4_rows(xc)
     device = xr.device.type
     if device == "cpu":
         return flocking_sums_block_reference(

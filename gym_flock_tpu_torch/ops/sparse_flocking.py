@@ -32,7 +32,9 @@ dense K2 pass for a batch whose table overflows.
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (``csrc/sparse_sums.cu`` and
 ``csrc/sparse_adj.cu``, built at first use) or raises, any other device
-raises.
+raises.  The plain versions take float32 or float64 and follow the input's
+type; the kernels take float32 (K4's ``hs`` also bf16 or f16).
+Non-contiguous or misaligned operands are copied first.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import torch
 
 from gym_flock_tpu_torch.ops import adjacency_matmul as k2
 from gym_flock_tpu_torch.ops import flocking_sums as k1
-from gym_flock_tpu_torch.ops.flocking_sums import N_OUT
+from gym_flock_tpu_torch.ops.flocking_sums import N_OUT, check_float_type, float4_rows
 
 __all__ = [
     "BLOCK",
@@ -51,6 +53,7 @@ __all__ = [
     "sparse_sums_sorted",
     "sparse_sums_sorted_reference",
     "launch_grid",
+    "adj_launch_grid",
     "permute",
     "unsort",
     "flocking_sums_sparse",
@@ -227,8 +230,7 @@ def _check_inputs(xs, table, channels):
         raise ValueError(f"channels must be one of {tuple(_SET_CODE)}, got {channels!r}")
     if not isinstance(xs, torch.Tensor) or not isinstance(table, torch.Tensor):
         raise TypeError("xs and table must be torch.Tensors")
-    if xs.dtype != torch.float32:
-        raise TypeError(f"xs must be float32, got {xs.dtype}")
+    check_float_type("xs", xs)
     if table.dtype != torch.int32:
         raise TypeError(f"table must be int32, got {table.dtype}")
     if xs.dim() != 3 or xs.shape[-1] != 4 or xs.shape[1] % BLOCK != 0:
@@ -237,8 +239,6 @@ def _check_inputs(xs, table, channels):
     b, n, _ = xs.shape
     if table.dim() != 3 or table.shape[:2] != (b, n // BLOCK):
         raise ValueError(f"table must be [{b}, {n // BLOCK}, k], got {tuple(table.shape)}")
-    if not (xs.is_contiguous() and table.is_contiguous()):
-        raise ValueError("xs and table must be contiguous")
     if xs.device != table.device:
         raise ValueError(f"xs is on {xs.device}, table on {table.device}")
 
@@ -250,8 +250,6 @@ def _launch(xs, table, comm_radius, comm_radius2, channels):
     b, n, _ = xs.shape
     if b > _MAX_GRID_Y:
         raise ValueError(f"batch {b} exceeds the kernel grid's limit {_MAX_GRID_Y}")
-    if xs.data_ptr() % 16 != 0:
-        raise ValueError("xs must be 16-byte aligned (the kernel reads float4 rows)")
     out = torch.empty(b, n, N_OUT, dtype=torch.float32, device=xs.device)
     if b == 0 or n == 0:
         return out
@@ -293,6 +291,7 @@ def sparse_sums_sorted(
     docstring.  The contract of ``_sparse_sums_pallas`` in the JAX package.
     """
     _check_inputs(xs, table, channels)
+    xs, table = float4_rows(xs), table.contiguous()
     device = xs.device.type
     if device == "cpu":
         return sparse_sums_sorted_reference(xs, table, comm_radius, comm_radius2, channels)
@@ -459,13 +458,14 @@ def sparse_adj_sorted_reference(xs: torch.Tensor, hs: torch.Tensor, table: torch
     Follows ``_sparse_adj_xla`` (``gym_flock_tpu/ops/sparse_flocking.py:786-828``):
     a loop over the table's slots, each gathering whole 128-agent column
     blocks; a pad slot adds nothing, and the self pair is "same block, same
-    lane".  The adjacency is formed in f32; the products accumulate in f64,
-    as the CUDA kernel's do, and are rounded to f32 once.
+    lane".  The adjacency is formed in xs's type (f32 as the kernel forms
+    it, or f64 on the CPU); the products accumulate in f64, as the CUDA
+    kernel's do, and are rounded to f32 once unless hs is f64.
     """
     b, n, _ = xs.shape
     n_b, k_max, f = n // BLOCK, table.shape[-1], hs.shape[-1]
     dev = xs.device
-    cr2 = _f32(comm_radius2, dev)
+    cr2 = torch.as_tensor(comm_radius2, dtype=xs.dtype, device=dev)
     pos = xs[..., :2].reshape(b, n_b, BLOCK, 2)
     hb = hs.to(torch.float64).reshape(b, n_b, BLOCK, f)
     eye = torch.eye(BLOCK, dtype=torch.bool, device=dev)
@@ -489,16 +489,19 @@ def sparse_adj_sorted_reference(xs: torch.Tensor, hs: torch.Tensor, table: torch
             adj = (r2 < cr2) & ~self_pair & valid
             out[:, r0:r1] += torch.matmul(adj.to(torch.float64), hb[bidx, jc])
             deg[:, r0:r1] += adj.sum(dim=-1).to(torch.float32)
-    return out.reshape(b, n, f).to(torch.float32).to(hs.dtype), deg.reshape(b, n)
+    out = out.reshape(b, n, f)
+    if hs.dtype != torch.float64:
+        out = out.to(torch.float32)
+    return out.to(hs.dtype), deg.reshape(b, n)
 
 
 def _check_adj_inputs(xs, hs, table):
     if not all(isinstance(t, torch.Tensor) for t in (xs, hs, table)):
         raise TypeError("xs, hs and table must be torch.Tensors")
-    if xs.dtype != torch.float32:
-        raise TypeError(f"xs must be float32, got {xs.dtype}")
-    if not hs.is_floating_point() or hs.dtype == torch.float64:
-        raise TypeError(f"hs must be float32, bfloat16 or float16, got {hs.dtype}")
+    check_float_type("xs", xs)
+    if not hs.is_floating_point() or (hs.dtype == torch.float64 and hs.device.type != "cpu"):
+        raise TypeError(f"hs must be float32, bfloat16 or float16 (or float64 on the CPU), "
+                        f"got {hs.dtype} on {hs.device}")
     if table.dtype != torch.int32:
         raise TypeError(f"table must be int32, got {table.dtype}")
     if xs.dim() != 3 or xs.shape[-1] != 4 or xs.shape[1] % BLOCK != 0:
@@ -509,8 +512,6 @@ def _check_adj_inputs(xs, hs, table):
         raise ValueError(f"hs must be [{b}, {n}, F] with F >= 1, got {tuple(hs.shape)}")
     if table.dim() != 3 or table.shape[:2] != (b, n // BLOCK):
         raise ValueError(f"table must be [{b}, {n // BLOCK}, k], got {tuple(table.shape)}")
-    if not (xs.is_contiguous() and hs.is_contiguous() and table.is_contiguous()):
-        raise ValueError("xs, hs and table must be contiguous")
     if not xs.device == hs.device == table.device:
         raise ValueError(f"xs, hs and table lie on {xs.device}, {hs.device}, {table.device}")
 
@@ -521,10 +522,8 @@ def _launch_adj(xs, hs, table, comm_radius2, backward):
 
     b, n, _ = xs.shape
     f = hs.shape[-1]
-    if b > _MAX_GRID_Y or -(-f // 8) > _MAX_GRID_Y:
-        raise ValueError(f"batch {b} or F={f} exceeds the kernel grid's limit {_MAX_GRID_Y}")
-    if xs.data_ptr() % 16 != 0:
-        raise ValueError("xs must be 16-byte aligned (the kernel reads float4 rows)")
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"batch {b} exceeds the kernel grid's limit {_MAX_GRID_Y}")
     hs32 = hs if hs.dtype == torch.float32 else hs.to(torch.float32)
     out = torch.empty(b, n, f, dtype=torch.float32, device=xs.device)
     deg = torch.empty(b, n, dtype=torch.float32, device=xs.device)
@@ -543,8 +542,23 @@ def _launch_adj(xs, hs, table, comm_radius2, backward):
     return out.to(hs.dtype), deg
 
 
+def adj_launch_grid(b: int, n: int, k_max: int) -> tuple:
+    """``(blocks, threads a block, warps that split a row's listed blocks)``
+    of each of K4's launches (one for each chunk of 8 features) for ``b``
+    swarms of ``n`` agents and a table ``k_max`` wide (chosen from the
+    shape; needs the built library)."""
+    import ctypes
+
+    from gym_flock_tpu_torch.ops import _build
+
+    grid = (ctypes.c_int * 3)()
+    _build.load().gft_sparse_adj_grid(b, n, k_max, grid)
+    return tuple(grid)
+
+
 def _sparse_adj(xs, hs, table, comm_radius2, backward=False):
     _check_adj_inputs(xs, hs, table)
+    xs, hs, table = float4_rows(xs), hs.contiguous(), table.contiguous()
     device = xs.device.type
     if device == "cpu":
         return sparse_adj_sorted_reference(xs, hs, table, comm_radius2)

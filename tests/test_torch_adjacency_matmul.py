@@ -5,6 +5,12 @@ The JAX side runs its Pallas kernel in interpret mode, as
 tests/test_pallas_kernels.py runs it.  Inputs are made with numpy from a
 seed, as f32.  Tolerances: the degree exactly; ``out`` and the gradients
 to atol 2e-4, the JAX tests' own (the port accumulates in f64, JAX in f32).
+The edge-case swarms of ``chip_smoke.edge_swarms`` (and one with a NaN
+position) and F in {1, 9, 16} are held to the interpret-mode kernel too.
+The CUDA kernel adds H only on the neighbour pairs; the premise tests hold
+that sum equal to the plain version's on finite H, and pin the plain
+version's NaN where a non-neighbour's H row is not finite (the kernel skips
+it: a known deviation).
 """
 import numpy as np
 import jax
@@ -17,6 +23,7 @@ from gym_flock_tpu.ops.pallas_flocking import (
     adjacency_matmul_block as jax_adjacency_matmul_block,
     khop_aggregate as jax_khop_aggregate,
 )
+from chip_smoke import EDGE_CASES, edge_swarms
 from gym_flock_tpu_torch.ops import adjacency_matmul as k2
 
 torch.set_num_threads(2)
@@ -128,6 +135,105 @@ def test_rows_of_degree_zero_equal_jax(mean_pool):
     assert not got[deg == 0].any()
 
 
+EDGE_ADJ_CASES = EDGE_CASES + ("nan position",)
+
+
+def edge_case(case, cr):
+    """``chip_smoke.edge_swarms``; ``"nan position"`` is "band" with agent
+    5's position NaN (a neighbour of nobody)."""
+    x = edge_swarms("band" if case == "nan position" else case, cr)
+    if case == "nan position":
+        x[:, 5, :2] = np.nan
+    return x
+
+
+def _jax_block(xr, xc, h, row_offset, col_offset, cr2):
+    out, deg = jax_adjacency_matmul_block(jnp.asarray(xr), jnp.asarray(xc), jnp.asarray(h),
+                                          row_offset, col_offset, cr2, interpret=True)
+    return np.asarray(out), np.asarray(deg)
+
+
+@pytest.mark.parametrize("cr", [0.9, 2.0])
+@pytest.mark.parametrize("case", EDGE_ADJ_CASES)
+def test_edge_cases_equal_jax(case, cr):
+    x = edge_case(case, cr)
+    h = feats(x.shape[0], x.shape[1], 6, 30)
+    got, deg = k2.adjacency_matmul_block(t(x), t(x), t(h), 0, 0, cr * cr)
+    want, want_deg = _jax_block(x, x, h, 0, 0, cr * cr)
+    np.testing.assert_array_equal(deg.numpy(), want_deg)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    if case in ("all in reach", "none in reach"):
+        assert bool((deg == (x.shape[1] - 1 if case == "all in reach" else 0)).all())
+
+
+@pytest.mark.parametrize("f", [1, 9, 16])
+def test_feature_widths_equal_jax(f):
+    """Rows 130..259 against columns 0..299 of one swarm: ragged, and each
+    row's own column lies in the second 128-column tile."""
+    x, h = swarm(2, 300, 31, spread=1.5), feats(2, 300, f, 32)
+    xr = x[:, 130:260]
+    got, deg = k2.adjacency_matmul_block(t(xr), t(x), t(h), 130, 0, CR2)
+    want, want_deg = _jax_block(xr, x, h, 130, 0, CR2)
+    np.testing.assert_array_equal(deg.numpy(), want_deg)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def hit_only_block(xr, xc, h, row_offset, col_offset, cr2):
+    """The CUDA kernel's sums: for each row, the f64 sum of h over its
+    neighbours only, in column order, rounded to f32 once."""
+    b, m, _ = xr.shape
+    out = torch.zeros(b, m, h.shape[-1], dtype=torch.float64)
+    deg = torch.zeros(b, m)
+    cols = col_offset + torch.arange(xc.shape[1])
+    cr2 = torch.tensor(cr2, dtype=torch.float32)
+    for s in range(b):
+        for i in range(m):
+            dx = xc[s, :, 0] - xr[s, i, 0]
+            dy = xc[s, :, 1] - xr[s, i, 1]
+            hit = (dx * dx + dy * dy < cr2) & (cols != row_offset + i)
+            for j in hit.nonzero()[:, 0].tolist():
+                out[s, i] += h[s, j].double()
+            deg[s, i] = float(hit.sum())
+    return out.to(torch.float32), deg
+
+
+@pytest.mark.parametrize("case", ["band", "all in reach", "nan position", "ragged block"])
+def test_plain_version_equals_the_sum_over_neighbours_only(case):
+    """On finite H, skipping the non-neighbours changes no sum."""
+    if case == "ragged block":
+        x = t(swarm(2, 300, 33, spread=1.5))
+        xr, xc, ro, co, cr2 = x[:, 130:260].contiguous(), x, 130, 0, CR2
+    else:
+        xr = xc = t(edge_case(case, 2.0))
+        ro, co, cr2 = 0, 0, 4.0
+    h = t(feats(xc.shape[0], xc.shape[1], 3, 34))
+    got, deg = k2.adjacency_matmul_block(xr, xc, h, ro, co, cr2)
+    want, want_deg = hit_only_block(xr, xc, h, ro, co, cr2)
+    assert torch.equal(deg, want_deg) and torch.equal(got, want)
+
+
+def test_plain_version_is_nan_where_a_non_neighbour_h_row_is_not_finite():
+    """The known deviation: the plain version (as JAX's matmul) adds
+    0 * NaN = NaN from a non-neighbour's H row; the kernel skips the row."""
+    x = t(edge_swarms("none in reach", 0.9))
+    h = t(feats(2, x.shape[1], 2, 35))
+    h[0, 7] = float("nan")
+    h[1, 9] = float("inf")
+    got, deg = k2.adjacency_matmul_block(x, x, h, 0, 0, CR2)
+    assert not deg.any()
+    assert bool(got.isnan().all())
+
+
+def test_positions_of_another_width_are_packed_into_aligned_rows():
+    x = t(swarm(2, 50, 36))
+    assert k2._position_rows(x) is x
+    for cols in (2, 3, 5):
+        wide = torch.cat([x, x], dim=-1)[..., :cols]
+        rows = k2._position_rows(wide)
+        assert rows.shape == (2, 50, 4) and rows.data_ptr() % 16 == 0
+        assert torch.equal(rows[..., :2], x[..., :2]) and not rows[..., 2:].any()
+
+
 def test_khop_aggregate_equals_jax():
     x, h = swarm(2, 100, 3, spread=1.0), feats(2, 100, 6, 4)
     got = k2.khop_aggregate(t(x), t(h), CR2, k_hops=3)
@@ -195,6 +301,14 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_k2_float64_on_the_card_raises(cuda):
+    x, h = t(swarm(2, 64, 37)).to(cuda), t(feats(2, 64, 6, 38)).to(cuda)
+    for args in ((x.double(), x, h), (x, x, h.double())):
+        with pytest.raises(TypeError):
+            k2._adj(*args, 0, 0, CR2)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,11 @@ max |port - jax| / (1 + |jax|) < 1e-4; the mean-pooled network atol 1e-6;
 the expert action and rewards atol 1e-4; one Euler step's state atol 1e-5
 (the same arithmetic, up to XLA's FMA contraction).  Resets draw from
 different random streams, so they are held to the acceptance invariants.
+
+Float64 states run on the CPU as the JAX package runs them under
+``jax_enable_x64``: the sums, actions and states to 1e-9 (the x64 parity
+tests' tolerance; both sum in f64, in other orders), degrees and
+acceptance exactly.
 """
 import dataclasses
 import math
@@ -24,6 +29,8 @@ from gym_flock_tpu_torch import convert
 from gym_flock_tpu_torch.core.env import step_autoreset
 from gym_flock_tpu_torch.core.spaces import Box
 from gym_flock_tpu_torch.envs import flocking as tfl
+from gym_flock_tpu_torch.parallel import rollout as tro
+from gym_flock_tpu_torch.parallel import train as ttr
 
 torch.set_num_threads(2)
 
@@ -31,6 +38,7 @@ SUM_TOL = 1e-4
 NETWORK_ATOL = 1e-6
 U_ATOL = 1e-4
 STATE_ATOL = 1e-5
+X64_TOL = 1e-9
 N = 48
 B = 3
 
@@ -152,6 +160,115 @@ def test_large_env_obs_and_controller_match_jax(centralized):
     u = tenv.controller(tstate, tp, centralized=centralized)
     ju = jax.vmap(lambda s: jenv.controller(s, jp, centralized=centralized))(jstate)
     np.testing.assert_allclose(u.numpy(), np.asarray(ju), rtol=0, atol=U_ATOL)
+
+
+def _wide_view(seed):
+    """``x = wide[..., :4]`` of a ``[2, 256, 5]`` array: not contiguous.
+    Returns the numpy view and the torch view of the same numbers."""
+    wide = random_swarms(2, 256 * 5 // 4, seed).reshape(2, 256, 5)
+    view = wide[..., :4]
+    xt = torch.from_numpy(wide)[..., :4]
+    assert not xt.is_contiguous()
+    return view, xt
+
+
+@pytest.mark.parametrize("centralized", [True, False])
+def test_large_env_takes_a_non_contiguous_state(centralized):
+    """``init_state`` of a strided view, then the expert and a fused
+    rollout, equal to JAX's on the same numbers."""
+    view, xt = _wide_view(40)
+    jenv, jp = gft_jax.make("FlockingLarge-v0", n_agents=256)
+    tenv, tp = gft.make("FlockingLarge-v0", n_agents=256)
+    tstate = tenv.init_state(xt, tp)
+    jstate = jax.vmap(lambda a: jenv.init_state(a, jp))(jnp.asarray(view))
+    u = tenv.controller(tstate, tp, centralized=centralized)
+    ju = jax.vmap(lambda s: jenv.controller(s, jp, centralized=centralized))(jstate)
+    np.testing.assert_allclose(u.numpy(), np.asarray(ju), rtol=0, atol=U_ATOL)
+    final, traj = tenv.expert_rollout(tstate, tp, 2, centralized=centralized)
+    jfinal, jtraj = jax.vmap(lambda s: jenv.expert_rollout(s, jp, 2, centralized=centralized))(
+        jstate)
+    np.testing.assert_allclose(final.x.numpy(), np.asarray(jfinal.x), rtol=0, atol=STATE_ATOL)
+    np.testing.assert_allclose(traj["u"].numpy(), np.asarray(jtraj["u"]), rtol=0, atol=U_ATOL)
+    assert _rel(traj["values"].numpy(), jtraj["values"]) < SUM_TOL
+    np.testing.assert_array_equal(traj["network"].numpy(), np.asarray(jtraj["network"]))
+
+
+def test_non_contiguous_state_through_the_batch_rollout_and_the_collect():
+    """``batch_expert_rollout(init_state=)`` and
+    ``collect_large_flocking_batch(init_state=)`` from a strided view give
+    the rollout from the contiguous copy, which equals JAX's."""
+    view, xt = _wide_view(41)
+    jenv, jp = gft_jax.make("FlockingLarge-v0", n_agents=256)
+    tenv, tp = gft.make("FlockingLarge-v0", n_agents=256)
+    gen = torch.Generator().manual_seed(0)
+    final, traj = tro.batch_expert_rollout(tenv, tp, gen, 2, 2, init_state=tenv.init_state(xt, tp))
+    jfinal, jtraj = jax.vmap(lambda s: jenv.expert_rollout(s, jp, 2))(
+        jax.vmap(lambda a: jenv.init_state(a, jp))(jnp.asarray(view)))
+    np.testing.assert_allclose(final.x.numpy(), np.asarray(jfinal.x), rtol=0, atol=STATE_ATOL)
+    np.testing.assert_allclose(traj["u"].numpy(), np.asarray(jtraj["u"]), rtol=0, atol=U_ATOL)
+    xs, feats, acts = ttr.collect_large_flocking_batch(tenv, tp, gen, 2, 2,
+                                                       init_state=tenv.init_state(xt, tp))
+    want = ttr.collect_large_flocking_batch(tenv, tp, gen, 2, 2,
+                                            init_state=tenv.init_state(xt.contiguous(), tp))
+    for got, expect in zip((xs, feats, acts), want):
+        assert torch.equal(got, expect)
+    np.testing.assert_allclose(acts.view(2, 2, 256, 2)[:, 0].numpy(), np.asarray(jtraj["u"])[:, 0],
+                               rtol=0, atol=U_ATOL)
+
+
+@pytest.mark.parametrize("centralized", [True, False])
+def test_large_env_runs_float64_as_jax_x64(centralized):
+    """``init_state(x.double())``, then the expert, a step and a fused
+    rollout, against JAX under x64 on the same f64 numbers."""
+    x = random_swarms(2, 256, 42).astype(np.float64)
+    tenv, tp = gft.make("FlockingLarge-v0", n_agents=256)
+    tstate = tenv.init_state(torch.from_numpy(x), tp)
+    u = tenv.controller(tstate, tp, centralized=centralized)
+    st, obs, r, _, _ = tenv.step_env(None, tstate, u, tp)
+    final, traj = tenv.expert_rollout(tstate, tp, 2, centralized=centralized)
+    with jax.enable_x64(True):
+        jenv, jp = gft_jax.make("FlockingLarge-v0", n_agents=256)
+        jstate = jax.vmap(lambda a: jenv.init_state(a, jp))(jnp.asarray(x))
+        ju = jax.vmap(lambda s: jenv.controller(s, jp, centralized=centralized))(jstate)
+        jst, jobs, jr, _, _ = jax.vmap(lambda s, a: jenv.step_env(jax.random.key(0), s, a, jp))(
+            jstate, jnp.asarray(u.numpy()))
+        jfinal, jtraj = jax.vmap(
+            lambda s: jenv.expert_rollout(s, jp, 2, centralized=centralized))(jstate)
+        want = [np.asarray(v) for v in (ju, jst.x, jobs[0], jobs[1], jr, jfinal.x,
+                                         jtraj["u"], jtraj["values"], jtraj["network"])]
+    got = [v.numpy() for v in (u, st.x, obs[0], obs[1], r, final.x,
+                               traj["u"], traj["values"], traj["network"])]
+    for g, w in zip(got, want):
+        assert g.dtype == np.float64 and w.dtype == np.float64
+        assert _rel(g, w) < X64_TOL
+    np.testing.assert_array_equal(got[3], want[3])  # degree
+    np.testing.assert_array_equal(got[8], want[8])
+
+
+def test_reset_runs_under_float64_default_dtype_as_jax_x64():
+    """``FlockingRelativeEnv().reset_env`` under float64 as the default
+    dtype: its K1 acceptance test and observation in float64, equal to
+    JAX's under x64 on the accepted state."""
+    previous = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        env, params = tfl.FlockingRelativeEnv(), tfl.FlockingParams()
+        state, obs = env.reset_env(torch.Generator().manual_seed(4), params, 2)
+        x = state.x
+        accepted = env._reset_accept(x, params).numpy()
+    finally:
+        torch.set_default_dtype(previous)
+    assert x.dtype == torch.float64 and all(o.dtype == torch.float64 for o in obs)
+    with jax.enable_x64(True):
+        jenv, jp = gft_jax.make("FlockingRelative-v0")
+        xj = jnp.asarray(x.numpy())
+        want = np.asarray(jax.vmap(lambda a: jenv._reset_accept(a, jp))(xj))
+        jobs = jax.vmap(lambda a: jenv._obs(jenv.init_state(a, jp), jp))(xj)
+        jvalues, jnetwork = np.asarray(jobs[0]), np.asarray(jobs[1])
+    np.testing.assert_array_equal(accepted, want)
+    assert jvalues.dtype == np.float64
+    assert _rel(obs[0].numpy(), jvalues) < X64_TOL
+    np.testing.assert_allclose(obs[1].numpy(), jnetwork, rtol=0, atol=X64_TOL)
 
 
 def test_get_stats_matches_jax():

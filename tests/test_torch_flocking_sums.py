@@ -12,12 +12,19 @@ The CUDA kernel runs its arithmetic only on the pairs with r2 < cr2 or not
 r2 > cr; the premise tests hold the plain version equal, bit for bit with
 NaN equal, to the same sums over those pairs only, on the edge-case swarms
 of ``chip_smoke.edge_swarms``.
+
+On the CPU the plain version also takes float64, as the JAX package's XLA
+path runs under ``jax_enable_x64``: held to ``_flocking_sums_xla`` at x64
+with the degree exact and every other channel max |port - jax| / (1 + |jax|)
+< 1e-9, the x64 parity tests' tolerance (both sum in f64, in other orders).
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+from gym_flock_tpu.ops.pallas_flocking import _flocking_sums_xla
 from gym_flock_tpu.ops.pallas_flocking import flocking_sums as jax_flocking_sums
 from gym_flock_tpu.ops.pallas_flocking import flocking_sums_block as jax_flocking_sums_block
 from chip_smoke import EDGE_CASES, edge_swarms
@@ -28,6 +35,7 @@ torch.set_num_threads(2)
 CR = 0.9
 CR2 = CR * CR
 SUM_TOL = 1e-4
+X64_TOL = 1e-9
 
 
 def _swarms(b, n, seed):
@@ -177,9 +185,68 @@ def _bad_inputs():
 
 @pytest.mark.parametrize("name", sorted(_bad_inputs()))
 def test_wrapper_rejects_bad_inputs(name):
+    """Bad inputs raise, but for two that the wrapper now takes on the CPU:
+    float64 runs the plain version and returns float64, and a
+    non-contiguous input gives the contiguous input's result."""
     xr, xc, channels = _bad_inputs()[name]
-    with pytest.raises((TypeError, ValueError)):
-        k1.flocking_sums_block(xr, xc, 0, 0, CR, CR2, channels=channels)
+    if name == "float64":
+        got = k1.flocking_sums_block(xr, xc, 0, 0, CR, CR2, channels=channels)
+        assert got.dtype == torch.float64
+        assert torch.equal(got, k1.flocking_sums_block_reference(xr, xc, 0, 0, CR, CR2, channels))
+    elif name == "non_contiguous":
+        got = k1.flocking_sums_block(xr, xc, 0, 0, CR, CR2, channels=channels)
+        want = k1.flocking_sums_block(xr.contiguous(), xc.contiguous(), 0, 0, CR, CR2,
+                                      channels=channels)
+        assert torch.equal(got, want)
+    else:
+        with pytest.raises((TypeError, ValueError)):
+            k1.flocking_sums_block(xr, xc, 0, 0, CR, CR2, channels=channels)
+
+
+def test_wrapper_rejects_mixed_float_types():
+    x = torch.from_numpy(_swarms(2, 16, seed=5))
+    with pytest.raises(TypeError, match="float64"):
+        k1.flocking_sums_block(x, x.double(), 0, 0, CR, CR2)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want) / (1.0 + np.abs(want))))
+
+
+@pytest.mark.parametrize("channels", ["core", "full"])
+@pytest.mark.parametrize("n", [64, 137])
+def test_float64_matches_jax_x64(n, channels):
+    """The JAX package's CPU path under x64 on the same f64 swarms."""
+    x = np.random.RandomState(n).randn(3, n, 4) * 2
+    got = k1.flocking_sums_block(torch.from_numpy(x), torch.from_numpy(x), 0, 0, CR, CR2,
+                                 channels=channels).numpy()
+    with jax.enable_x64(True):
+        want = np.asarray(_flocking_sums_xla(jnp.asarray(x), CR, CR2, channels=channels))
+    assert got.dtype == np.float64 and want.dtype == np.float64
+    np.testing.assert_array_equal(got[..., 8], want[..., 8])
+    sums = _sum_channels(channels)
+    assert _rel(got[..., sums], want[..., sums]) < X64_TOL
+    if channels == "full":
+        assert _rel(got[..., 9], want[..., 9]) < X64_TOL
+    assert not got[..., 12 if channels == "full" else 9:].any()
+
+
+def test_offset_view_gives_the_copys_result():
+    """A contiguous view that starts 4 bytes into its storage (not 16-byte
+    aligned) and a strided view are copied first, on every device."""
+    x = torch.from_numpy(_swarms(2, 40, seed=8))
+    flat = torch.empty(1 + x.numel())
+    flat[1:] = x.reshape(-1)
+    offset = flat[1:].view(x.shape)
+    wide = torch.zeros(2, 40, 5)
+    wide[..., 1:] = x
+    strided = wide[..., 1:]
+    assert offset.is_contiguous() and offset.data_ptr() % 16 and not strided.is_contiguous()
+    want = k1.flocking_sums(x, CR, CR2)
+    assert torch.equal(k1.flocking_sums(offset, CR, CR2), want)
+    assert torch.equal(k1.flocking_sums(strided, CR, CR2), want)
+    assert torch.equal(k1.float4_rows(offset), x) and k1.float4_rows(x) is x
 
 
 def test_wrapper_raises_on_a_device_other_than_cpu_or_cuda():
@@ -215,6 +282,17 @@ def test_kernel_matches_plain_on_the_card(cuda, b, n):
         assert k1.launches == before + 1
         want = k1.flocking_sums_block_reference(x, x, 0, 0, CR, CR2, channels)
         _assert_k1_close(got.cpu().numpy(), want.cpu().numpy(), channels)
+
+
+@pytest.mark.cuda
+def test_float64_on_the_card_raises_and_offset_views_run(cuda):
+    x = torch.from_numpy(_swarms(2, 300, seed=9)).to(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        k1.flocking_sums(x.double(), CR, CR2)
+    flat = torch.empty(1 + x.numel(), device=cuda)
+    flat[1:] = x.reshape(-1)
+    got = k1.flocking_sums(flat[1:].view(x.shape), CR, CR2)
+    assert torch.equal(got, k1.flocking_sums(x, CR, CR2))
 
 
 @pytest.mark.cuda

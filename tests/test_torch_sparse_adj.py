@@ -6,7 +6,14 @@ against ``_sparse_adj_xla`` on the same sorted inputs and table;
 ``adjacency_matmul_sparse`` and ``khop_aggregate_sparse`` against JAX's,
 with their gradients.  Tolerances: tables, overflow flags and the degree
 exactly; ``out`` and the gradients to atol 2e-4, the JAX tests' own (the
-port accumulates in f64, JAX in f32).
+port accumulates in f64, JAX in f32).  The plain version also runs on the
+edge-case swarms of ``chip_smoke.edge_swarms`` (and one with a NaN
+position) and at F in {1, 9, 16} against the Pallas kernel in interpret
+mode, and in float64 against ``_sparse_adj_xla`` under x64 (1e-9, the x64
+parity tests' tolerance).  The CUDA kernel adds H only on the neighbour
+pairs; the premise tests hold that sum equal to the plain version's on
+finite H, and pin the plain version's NaN where a non-neighbour's H row is
+not finite (the kernel skips it: a known deviation).
 """
 import functools
 import math
@@ -19,6 +26,7 @@ import torch
 
 from gym_flock_tpu.ops import sparse_flocking as jsf
 from gym_flock_tpu.ops.pallas_flocking import adjacency_matmul as jax_adjacency_matmul
+from chip_smoke import EDGE_CASES, edge_swarms
 from gym_flock_tpu_torch.ops import adjacency_matmul as k2
 from gym_flock_tpu_torch.ops import sparse_flocking as sf
 
@@ -193,9 +201,127 @@ def _bad_inputs():
 
 @pytest.mark.parametrize("name", sorted(_bad_inputs()))
 def test_k4_wrapper_rejects_bad_inputs(name):
+    """Bad inputs raise, but for three that the wrapper now takes on the
+    CPU: float64 xs or hs run the plain version (out in hs's type, deg
+    f32), and a non-contiguous hs gives the contiguous one's result."""
     xs, hs, table = _bad_inputs()[name]
-    with pytest.raises((TypeError, ValueError)):
-        sf.sparse_adj_sorted(xs, hs, table, CR2)
+    if name.startswith("float64"):
+        out, deg = sf.sparse_adj_sorted(xs, hs, table, CR2)
+        want, want_deg = sf.sparse_adj_sorted_reference(xs, hs, table, CR2)
+        assert out.dtype == hs.dtype and deg.dtype == torch.float32
+        assert torch.equal(out, want) and torch.equal(deg, want_deg)
+    elif name == "non_contiguous hs":
+        got = sf.sparse_adj_sorted(xs, hs, table, CR2)
+        want = sf.sparse_adj_sorted(xs, hs.contiguous(), table, CR2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        with pytest.raises((TypeError, ValueError)):
+            sf.sparse_adj_sorted(xs, hs, table, CR2)
+
+
+def test_k4_float64_equals_sparse_adj_xla_x64():
+    """``_sparse_adj_xla`` runs at x64 and returns f64: so does the plain
+    version on the CPU, without rounding to f32."""
+    x = STATES["normal N=512"]()
+    xs, hs, table, _ = _sorted_operands(x, feats(2, 512, 6, 24))
+    xs64, hs64 = xs.double(), hs.double()
+    got, deg = sf.sparse_adj_sorted(xs64, hs64, table, CR2)
+    with jax.enable_x64(True):
+        want, want_deg = jsf._sparse_adj_xla(jnp.asarray(xs64.numpy()), jnp.asarray(hs64.numpy()),
+                                             jnp.asarray(table.numpy()), CR2)
+        want, want_deg = np.asarray(want), np.asarray(want_deg)
+    assert got.dtype == torch.float64 and want.dtype == np.float64
+    np.testing.assert_array_equal(deg.numpy(), want_deg)
+    assert np.max(np.abs(got.numpy() - want) / (1.0 + np.abs(want))) < 1e-9
+
+
+def _edge_sorted(case, cr, f, seed):
+    """An edge-case swarm (``"nan position"``: "band" with agent 5's
+    position NaN), its features and table, sorted at ``cr`` as the pipeline
+    sorts them."""
+    x = edge_swarms("band" if case == "nan position" else case, cr)
+    if case == "nan position":
+        x[:, 5, :2] = np.nan
+    xt = t(x)
+    perm = sf.hilbert_order(xt, cr)
+    xs = sf.permute(xt, perm)
+    table, _ = sf.block_pair_table(xs, cr, K_MAX)
+    return xs, sf.permute(t(feats(x.shape[0], x.shape[1], f, seed)), perm), table
+
+
+EDGE_ADJ_CASES = EDGE_CASES + ("nan position",)
+
+
+def _jax_sorted(xs, hs, table, cr2):
+    out, deg = jsf._sparse_adj_pallas(jnp.asarray(xs.numpy()), jnp.asarray(hs.numpy()),
+                                      jnp.asarray(table.numpy()), cr2, interpret=True)
+    return np.asarray(out), np.asarray(deg)
+
+
+@pytest.mark.parametrize("cr", [0.9, 2.0])
+@pytest.mark.parametrize("case", EDGE_ADJ_CASES)
+def test_plain_k4_edge_cases_equal_the_pallas_kernel(case, cr):
+    xs, hs, table = _edge_sorted(case, cr, 6, 25)
+    got, deg = sf.sparse_adj_sorted(xs, hs, table, cr * cr)
+    want, want_deg = _jax_sorted(xs, hs, table, cr * cr)
+    np.testing.assert_array_equal(deg.numpy(), want_deg)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    if case in ("all in reach", "none in reach"):
+        assert bool((deg == (xs.shape[1] - 1 if case == "all in reach" else 0)).all())
+
+
+@pytest.mark.parametrize("f", [1, 9, 16])
+def test_plain_k4_feature_widths_equal_the_pallas_kernel(f):
+    xs, hs, table, _ = _sorted_operands(STATES["normal N=512"](), feats(2, 512, f, 26))
+    got, deg = sf.sparse_adj_sorted(xs, hs, table, CR2)
+    want, want_deg = _jax_sorted(xs, hs, table, CR2)
+    np.testing.assert_array_equal(deg.numpy(), want_deg)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+def hit_only_sorted(xs, hs, table, cr2):
+    """The CUDA kernel's sums: for each row, the f64 sum of hs over its
+    neighbours only, slot by slot in column order, rounded to f32 once."""
+    b, n, f = hs.shape
+    out = torch.zeros(b, n, f, dtype=torch.float64)
+    deg = torch.zeros(b, n)
+    cr2 = torch.tensor(cr2, dtype=torch.float32)
+    for s in range(b):
+        for i in range(n):
+            for j in table[s, i // sf.BLOCK].tolist():
+                if j < 0:
+                    continue
+                cols = torch.arange(j * sf.BLOCK, (j + 1) * sf.BLOCK)
+                dx = xs[s, cols, 0] - xs[s, i, 0]
+                dy = xs[s, cols, 1] - xs[s, i, 1]
+                hit = (dx * dx + dy * dy < cr2) & (cols != i)
+                for c in cols[hit].tolist():
+                    out[s, i] += hs[s, c].double()
+                deg[s, i] += float(hit.sum())
+    return out.to(torch.float32), deg
+
+
+@pytest.mark.parametrize("case", ["band", "all in reach", "nan position"])
+def test_plain_k4_equals_the_sum_over_neighbours_only(case):
+    """On finite H, skipping the non-neighbours changes no sum."""
+    xs, hs, table = _edge_sorted(case, 2.0, 3, 27)
+    got, deg = sf.sparse_adj_sorted(xs, hs, table, 4.0)
+    want, want_deg = hit_only_sorted(xs, hs, table, 4.0)
+    assert torch.equal(deg, want_deg) and torch.equal(got, want)
+
+
+def test_plain_k4_is_nan_where_a_non_neighbour_h_row_is_not_finite():
+    """The known deviation: the plain version (as JAX's matmul) adds
+    0 * NaN = NaN from a non-neighbour's H row; the kernel skips the row."""
+    xs, hs, table = _edge_sorted("none in reach", 0.9, 2, 28)
+    hs[0, 7] = float("nan")
+    hs[1, 9] = float("inf")
+    got, deg = sf.sparse_adj_sorted(xs, hs, table, CR2)
+    assert not deg.any()
+    rows = torch.arange(xs.shape[1]) // sf.BLOCK
+    listed = [(table[0, rows] == 7 // sf.BLOCK).any(-1), (table[1, rows] == 9 // sf.BLOCK).any(-1)]
+    for s in range(2):
+        assert torch.equal(got[s].isnan().any(-1), listed[s])
 
 
 def test_k4_wrapper_raises_on_a_device_other_than_cpu_or_cuda():
@@ -235,6 +361,15 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_k4_float64_on_the_card_raises(cuda):
+    xs, hs, table, _ = _sorted_operands(STATES["normal N=256"](), feats(1, 256, 6, 29))
+    xs, hs, table = xs.to(cuda), hs.to(cuda), table.to(cuda)
+    for args in ((xs.double(), hs), (xs, hs.double())):
+        with pytest.raises(TypeError, match="float32"):
+            sf.sparse_adj_sorted(*args, table, CR2)
 
 
 @pytest.mark.cuda

@@ -603,9 +603,39 @@ def _bad_inputs():
 
 @pytest.mark.parametrize("name", sorted(_bad_inputs()))
 def test_k3_wrapper_rejects_bad_inputs(name):
+    """Bad inputs raise, but for two that the wrapper now takes on the CPU:
+    float64 runs the plain version and returns float64, and a
+    non-contiguous xs gives the contiguous one's result."""
     xs, table, channels = _bad_inputs()[name]
-    with pytest.raises((TypeError, ValueError)):
-        sf.sparse_sums_sorted(xs, table, CR, CR2, channels)
+    if name == "float64":
+        got = sf.sparse_sums_sorted(xs, table, CR, CR2, channels)
+        assert got.dtype == torch.float64
+        assert torch.equal(got, sf.sparse_sums_sorted_reference(xs, table, CR, CR2, channels))
+    elif name == "non_contiguous":
+        got = sf.sparse_sums_sorted(xs, table, CR, CR2, channels)
+        assert torch.equal(got, sf.sparse_sums_sorted(xs.contiguous(), table, CR, CR2, channels))
+    else:
+        with pytest.raises((TypeError, ValueError)):
+            sf.sparse_sums_sorted(xs, table, CR, CR2, channels)
+
+
+@pytest.mark.parametrize("expert", [False, True])
+def test_k3_float64_matches_jax_x64(expert):
+    """K3's plain version in float64 against ``_sparse_sums_sorted`` under
+    x64 on the same sorted f64 operands: the degree exactly, the sums to
+    max |port - jax| / (1 + |jax|) < 1e-9 (both f64, other orders)."""
+    xs, _ = _sorted(STATES["normal N=256"]())
+    table, _ = sf.block_pair_table(xs, CR, K_MAX)
+    xs64 = xs.double()
+    channels = "expert" if expert else "core"
+    got = sf.sparse_sums_sorted(xs64, table, CR, CR2, channels).numpy()
+    with jax.enable_x64(True):
+        want = np.asarray(jax.vmap(lambda a, tb: jsf._sparse_sums_sorted(
+            a, tb, CR, CR2, expert=expert))(jnp.asarray(xs64.numpy()), jnp.asarray(table.numpy())))
+    assert got.dtype == np.float64 and want.dtype == np.float64
+    np.testing.assert_array_equal(got[..., 8], want[..., 8])
+    sums = list(range(8)) + ([10, 11] if expert else [])
+    assert _rel(got[..., sums], want[..., sums]) < 1e-9
 
 
 def test_k3_wrapper_raises_on_a_device_other_than_cpu_or_cuda():
@@ -644,6 +674,14 @@ def test_k3_matches_plain_on_the_card(cuda, name):
         assert sf.launches == before + 1
         want = sf.sparse_sums_sorted_reference(xs, table, CR, CR2, channels)
         _assert_sums_close(got.cpu().numpy(), want.cpu().numpy(), channels)
+
+
+@pytest.mark.cuda
+def test_k3_float64_on_the_card_raises(cuda):
+    xs, _ = _sorted(STATES["normal N=256"]())
+    table, _ = sf.block_pair_table(xs, CR, K_MAX)
+    with pytest.raises(TypeError, match="float32"):
+        sf.sparse_sums_sorted(xs.double().to(cuda), table.to(cuda), CR, CR2)
 
 
 @pytest.mark.cuda
