@@ -113,6 +113,36 @@ Phases, each printing one line:
 16. main path, ``FlockingImitationTrainer`` on ``FlockingRelative-v0``
    (N=100): 1024 envs x 8 steps, 5 updates.  K1 runs in the resets (one
    launch per draw); the aggregation is dense ``torch.matmul``.
+17. main path, ``CoverageImitationTrainer`` on ``CoverageARL-v0`` on the
+   real ARL facility map (8 sub-windows, R=4, T=996; ``real_map=True``),
+   ``EdgeGraphNet(latent=64, rounds=6)``: batches of 8 envs x 16 steps,
+   5 updates.  K5 must launch exactly once per collect step; the first
+   collect step's labels must equal the plain argmin controller's on the
+   same state with the same random draws; the first loss must equal that
+   of the same batch and weights on a CPU copy of the model within 1e-5
+   relative; losses finite, parameters moved.  Prints the collect and
+   update ms (host clock around ``torch.cuda.synchronize()``) and K5's
+   time at this shape (B=8, R=4, T=996, on the first collect's state,
+   bitwise equal to plain).  Then ``evaluate`` on the held-out bank
+   (``bank_seed=1234``) at 64 envs x 50 steps: finite values, expert
+   reward above 0, K5 once per expert step (its collect and the expert's
+   episode).
+18. ``CoverageDaggerTrainer`` on the same world: capacity 1024, two
+   iterations of 8 envs x 16 steps, 32 grad steps of batch 128.  K5 once
+   a step; ``write_pos``/``filled`` 128/128 then 256/256; at beta=1 the
+   stored labels are the actions taken (replaying them from the same
+   reset reproduces every stored observation).
+19. ``collect_vrp_labeled_batch`` on the same world, 4 envs x 8 steps,
+   ``or_default``, two worker threads; the VRP solver is built with g++
+   from ``gym_flock_tpu_torch/experts/vrp/vrp_solver.cc`` into ``build/``.
+   K5 once a step; every label in [0, A); the labels equal
+   ``vrp_label_states`` on one thread and on two on the same states.
+   Prints the labelling seconds.
+20. ``DaggerTrainer`` on ``FlockingRelative-v0`` (N=100) with
+   ``AggregationGNN(k_hops=4, hidden=(128, 128))``: two iterations of 8
+   envs x 16 steps, 4 grad steps.  K1 once per reset draw; iteration 0's
+   labels equal ``turner_controller`` on the stored states; losses
+   finite, parameters moved.
 
 Then one JSON line describing each kernel (its time, its plain version's,
 and its bound: the larger of the operations it must do over the f32 peak
@@ -1511,6 +1541,275 @@ def phase_relative_train(device: str, n_envs: int, n_steps: int, n_updates: int,
             "batch": list(batch[0].shape)}
 
 
+def arl_world(device: str, bank_seed: int):
+    """``CoverageARL-v0`` on the real ARL facility map (``real_map=True``
+    raises where ``find_reference_map`` finds none): 8 sub-windows, R=4,
+    T=996, with K5's operand."""
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs.maps import find_reference_map
+
+    if find_reference_map(10) is None:
+        raise AssertionError("find_reference_map found no ARL map: not the real world")
+    env, params = gft.make("CoverageARL-v0", n_graphs=8, bank_seed=bank_seed, device=device,
+                           real_map=True)
+    if (params.n_robots, params.max_targets) != (4, 996) or "cost_rows_pad" not in params.bank:
+        raise AssertionError(f"CoverageARL-v0: R={params.n_robots} T={params.max_targets}, "
+                             f"K5 operand {'cost_rows_pad' in params.bank}")
+    return env, params
+
+
+def check_k5_count(what: str, steps: int) -> int:
+    from gym_flock_tpu_torch.ops import rowmin as k5
+
+    if k5.launches != steps:
+        raise AssertionError(f"{what}: K5 launched {k5.launches} times for {steps} expert steps")
+    return k5.launches
+
+
+def replay_coverage_collect(env, params, gen_state, batch, n_envs: int, n_steps: int) -> None:
+    """Reset from ``gen_state`` as the collect did, then step with the
+    stored labels: every stored observation must be the one they lead to,
+    i.e. the labels are the actions taken."""
+    import torch
+
+    gen = torch.Generator(device=params.device)
+    gen.set_state(gen_state)
+    state, obs = env.reset_env(gen, params, n_envs)
+    view = {k: v.reshape((n_envs, n_steps) + v.shape[1:]) for k, v in batch.items()}
+    for t in range(n_steps):
+        for k in ("nodes", "edges", "senders", "receivers"):
+            if not torch.equal(obs[k], view[k][:, t]):
+                raise AssertionError(f"step {t}: stored {k} is not where the labels lead")
+        state, obs, _, _, _ = env.step_env(None, state, view["label"][:, t], params)
+
+
+def phase_coverage_train(device: str, world, eval_params, n_envs: int, n_steps: int,
+                         n_updates: int, eval_envs: int, eval_steps: int) -> dict:
+    """Phase 17: ``CoverageImitationTrainer`` with ``EdgeGraphNet(64, 6)`` on
+    the real CoverageARL-v0 world, K5 once a collect step; then
+    ``evaluate`` on the held-out bank."""
+    import dataclasses
+
+    import torch
+
+    from gym_flock_tpu_torch.models import EdgeGraphNet
+    from gym_flock_tpu_torch.ops import rowmin as k5
+    from gym_flock_tpu_torch.parallel import CoverageImitationTrainer
+
+    env, params = world
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = EdgeGraphNet(latent=64, rounds=6, generator=gen, device=device)
+    trainer = CoverageImitationTrainer(env, params, model=model, device=device)
+    trainer.init(gen)
+    before = [p.detach().clone() for p in model.parameters()]
+
+    # the first train step, collect and update apart; the first collect
+    # step's labels against the plain argmin controller on the same state
+    # and draws; the first loss against a CPU copy of the model
+    gen_state = gen.get_state()
+    _sync()
+    reset_counts()
+    batch = trainer.collect(gen, n_envs, n_steps)
+    _sync()
+    check_k5_count("the first collect", n_steps)
+    replay = torch.Generator(device=device)
+    replay.set_state(gen_state)
+    state0, _ = env.reset_env(replay, params, n_envs)
+    rand_u = torch.randint(0, params.n_actions, (n_envs, params.n_robots), generator=replay,
+                           device=device, dtype=torch.int32)
+    plain = dataclasses.replace(
+        params, bank={k: v for k, v in params.bank.items() if k != "cost_rows_pad"})
+    u_plain = env.controller(state0, plain, rand_u=rand_u)[..., 0]
+    first = batch["label"].reshape(n_envs, n_steps, -1)[:, 0]
+    if not torch.equal(first, u_plain):
+        raise AssertionError(f"first collect step's labels differ from the plain controller "
+                             f"in {int((first != u_plain).sum())}")
+    cpu = CoverageImitationTrainer(env, params, model=EdgeGraphNet(64, 6), device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        cpu_loss = float(cpu.loss_fn({k: v.cpu() for k, v in batch.items()}))
+    losses = [float(trainer.update(batch))]
+    loss_rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    if not loss_rel < 1e-5:
+        raise AssertionError(f"first loss {losses[0]} against {cpu_loss} on the CPU copy: "
+                             f"relative {loss_rel:.3e}")
+
+    # K5 at this slice's shape, on the first collect's state
+    t = params.max_targets
+    rowidx = (state0.graph[:, None] * t + state0.robot_loc).to(torch.int32).contiguous()
+    blocked = ((state0.visited >= 1.0) | ~params.bank["target_mask"][state0.graph.long()])
+    k5_args = (rowidx, blocked.contiguous(), params.bank["cost_rows_pad"])
+    if not torch.equal(k5.packed_greedy_min(*k5_args), k5.packed_greedy_min_reference(*k5_args)):
+        raise AssertionError("K5 differs from plain at B=8 R=4 T=996")
+    rows = n_envs * params.n_robots * k5_args[2].shape[1]
+    k5_timing = {"case": f"CoverageARL B={n_envs} R={params.n_robots} T={t}",
+                 "B": n_envs, "R": params.n_robots, "T": t, "Tp": k5_args[2].shape[1],
+                 "ms": time_ms(lambda: k5.packed_greedy_min(*k5_args)),
+                 "plain_ms": time_ms(lambda: k5.packed_greedy_min_reference(*k5_args)),
+                 "library_ms": None,
+                 **bound(2 * rows, rows * 2 + nbytes(rowidx, k5_args[1]) + rowidx.numel() * 4)}
+
+    # the other steps as train_step takes them, collect and update timed
+    # apart (the first call of each paid one-time set-up)
+    reset_counts()
+    collect_s = update_s = 0.0
+    for _ in range(n_updates - 1):
+        t0 = time.perf_counter()
+        batch = trainer.collect(gen, n_envs, n_steps)
+        _sync()
+        t1 = time.perf_counter()
+        losses.append(float(trainer.update(batch)))
+        _sync()
+        collect_s += t1 - t0
+        update_s += time.perf_counter() - t1
+    launches = n_steps + check_k5_count("the train steps", (n_updates - 1) * n_steps)
+    check_training(losses, before, model)
+
+    # the held-out bank: accuracy, policy and expert episode reward
+    reset_counts()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(torch.Generator(device=device).manual_seed(99), eval_params,
+                          n_envs=eval_envs, n_steps=eval_steps)
+    _sync()
+    eval_s = time.perf_counter() - t0
+    eval_launches = check_k5_count("evaluate (its collect and the expert's episode)",
+                                   2 * eval_steps)
+    if not all(math.isfinite(v) for v in ev.values()) or not ev["expert_reward"] > 0:
+        raise AssertionError(f"held-out evaluation {ev}")
+    return {"losses": losses, "loss_vs_cpu_rel": loss_rel, "k5_launches": launches,
+            "collect_ms": 1e3 * collect_s / (n_updates - 1),
+            "update_ms": 1e3 * update_s / (n_updates - 1),
+            "heldout": ev, "eval_seconds": eval_s, "eval_k5_launches": eval_launches,
+            "k5_timing": k5_timing, "batch": list(batch["nodes"].shape)}
+
+
+def phase_coverage_dagger(device: str, world, capacity: int, n_envs: int, n_steps: int,
+                          n_grad_steps: int, batch_size: int) -> dict:
+    """Phase 18: ``CoverageDaggerTrainer`` on phase 17's world, two
+    iterations."""
+    import torch
+
+    from gym_flock_tpu_torch.models import EdgeGraphNet
+    from gym_flock_tpu_torch.parallel import CoverageDaggerTrainer
+
+    env, params = world
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    trainer = CoverageDaggerTrainer(
+        env, params, model=EdgeGraphNet(64, 6, generator=gen, device=device),
+        capacity=capacity, device=device)
+    trainer.init(gen)
+    losses, seconds, launches = [], [], 0
+    for k in range(2):
+        gen_state = gen.get_state()
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.iteration(gen, trainer.beta_decay ** k, n_envs, n_steps,
+                                              n_grad_steps, batch_size)))
+        seconds.append(time.perf_counter() - t0)
+        launches += check_k5_count(f"DAGGER iteration {k}", n_steps)
+        n_new = n_envs * n_steps * (k + 1)
+        if (trainer.write_pos, trainer.filled) != (n_new % capacity, min(n_new, capacity)):
+            raise AssertionError(f"iteration {k}: write_pos {trainer.write_pos}, "
+                                 f"filled {trainer.filled}")
+        if k == 0:  # beta = 1: the labels are the actions taken
+            first = {key: v[:n_envs * n_steps] for key, v in trainer.buffer.items()}
+            replay_coverage_collect(env, params, gen_state, first, n_envs, n_steps)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return {"losses": losses, "iteration_seconds": seconds, "k5_launches": launches,
+            "write_pos": trainer.write_pos, "filled": trainer.filled}
+
+
+def phase_vrp_labels(device: str, world, n_envs: int, n_steps: int) -> dict:
+    """Phase 19: ``collect_vrp_labeled_batch`` on phase 17's world, the VRP
+    solver built with g++ from the port's copy."""
+    import numpy as np
+    import torch
+
+    from gym_flock_tpu_torch.experts import vrp
+    from gym_flock_tpu_torch.parallel import collect_vrp_labeled_batch, vrp_label_states
+    from gym_flock_tpu_torch.parallel.train_coverage import STATE_KEYS, greedy_rollout
+
+    env, params = world
+    t0 = time.perf_counter()
+    # a one-node problem: builds the library
+    if vrp.solve_vrp_raw([[0.0, 0.0], [0.0, 0.0]], [0.0, 0.0], [1], 1.0) != [[1]]:
+        raise AssertionError("the VRP solver's one-node route")
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    gen_state = gen.get_state()
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    batch = collect_vrp_labeled_batch(env, params, gen, n_envs, n_steps, mode="or_default",
+                                      workers=2)
+    _sync()
+    collect_s = time.perf_counter() - t0
+    launches = check_k5_count("the VRP behaviour rollout", n_steps)
+    labels = batch["label"]
+    if labels.shape != (n_envs * n_steps, params.n_robots) or not bool(
+            ((labels >= 0) & (labels < params.n_actions)).all()):
+        raise AssertionError(f"labels {tuple(labels.shape)} out of [0, {params.n_actions})")
+    # the same states again (same draws), labelled on one thread, then two
+    replay = torch.Generator(device=device)
+    replay.set_state(gen_state)
+    states = {k: v for k, v in greedy_rollout(env, params, replay, n_envs, n_steps,
+                                              keep_state=True).items() if k in STATE_KEYS}
+    t0 = time.perf_counter()
+    one = vrp_label_states(params, states, workers=1)
+    label1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = vrp_label_states(params, states, workers=2)
+    label2_s = time.perf_counter() - t0
+    if not (np.array_equal(labels.cpu().numpy(), one) and np.array_equal(one, two)):
+        raise AssertionError("VRP labels differ between the batch, one worker and two")
+    return {"k5_launches": launches, "collect_seconds": collect_s, "build_seconds": build_s,
+            "label_seconds_workers1": label1_s, "label_seconds_workers2": label2_s,
+            "states": n_envs * n_steps}
+
+
+def phase_flocking_dagger(device: str, n_envs: int, n_steps: int, n_grad_steps: int) -> dict:
+    """Phase 20: ``DaggerTrainer`` on FlockingRelative-v0 (N=100) with
+    ``AggregationGNN(k_hops=4, hidden=(128, 128))``; K1 once a reset draw."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs.flocking import turner_controller
+    from gym_flock_tpu_torch.models import AggregationGNN
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.parallel import DaggerTrainer
+
+    env, params = gft.make("FlockingRelative-v0")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model = AggregationGNN(k_hops=4, hidden=(128, 128), generator=gen, device=device)
+    trainer = DaggerTrainer(env, params, model=model, capacity=8192, device=device)
+    trainer.init(gen)
+    before = [p.detach().clone() for p in model.parameters()]
+    losses, seconds, launches, tries = [], [], 0, 0
+    for k in range(2):
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.iteration(gen, trainer.beta_decay ** k, n_envs, n_steps,
+                                              n_grad_steps)))
+        seconds.append(time.perf_counter() - t0)
+        if k1.launches != env.last_reset_tries:
+            raise AssertionError(f"iteration {k}: K1 {k1.launches} launches for "
+                                 f"{env.last_reset_tries} reset draws")
+        launches += k1.launches
+        tries += env.last_reset_tries
+        if k == 0:
+            n_new = n_envs * n_steps
+            s = trainer.state
+            if not torch.equal(s.buffer_label[:n_new], turner_controller(s.buffer_x[:n_new],
+                                                                         params)):
+                raise AssertionError("iteration 0's labels are not the Turner controller's")
+    check_training(losses, before, model)
+    return {"losses": losses, "iteration_seconds": seconds, "k1_launches": launches,
+            "reset_tries": tries, "filled": trainer.state.filled}
+
+
 def main() -> int:
     import torch
 
@@ -1635,6 +1934,37 @@ def main() -> int:
     print("phase 16 FlockingImitationTrainer FlockingRelative-v0 N=100 1024 envs x 8 steps, "
           "5 updates: " + json.dumps(t16))
 
+    # 17. coverage imitation on the real CoverageARL-v0 world through K5
+    t0 = time.perf_counter()
+    world = arl_world(device, bank_seed=0)
+    _, eval_params = arl_world(device, bank_seed=1234)
+    banks_s = time.perf_counter() - t0
+    t17 = phase_coverage_train(device, world, eval_params, n_envs=8, n_steps=16, n_updates=5,
+                               eval_envs=64, eval_steps=50)
+    t17["banks_seconds"] = banks_s
+    _sync()
+    print("phase 17 CoverageImitationTrainer CoverageARL-v0 real map EdgeGraphNet(64, 6) "
+          "8 envs x 16 steps, 5 updates: " + json.dumps(t17))
+
+    # 18. coverage DAGGER on the same world
+    t18 = phase_coverage_dagger(device, world, capacity=1024, n_envs=8, n_steps=16,
+                                n_grad_steps=32, batch_size=128)
+    _sync()
+    print("phase 18 CoverageDaggerTrainer 2 iterations of 8 envs x 16 steps, 32 grad steps: "
+          + json.dumps(t18))
+
+    # 19. VRP labels of the greedy rollout's states
+    t19 = phase_vrp_labels(device, world, n_envs=4, n_steps=8)
+    _sync()
+    print("phase 19 collect_vrp_labeled_batch 4 envs x 8 steps or_default workers=2: "
+          + json.dumps(t19))
+
+    # 20. flocking DAGGER
+    t20 = phase_flocking_dagger(device, n_envs=8, n_steps=16, n_grad_steps=4)
+    _sync()
+    print("phase 20 DaggerTrainer FlockingRelative-v0 N=100 2 iterations of 8 envs x 16 steps: "
+          + json.dumps(t20))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
@@ -1645,7 +1975,8 @@ def main() -> int:
         "source": "gym_flock_tpu_torch/csrc/block_sums.cu",
         "replaces": "gym_flock_tpu/ops/pallas_flocking.py:268",
         "launches": (large["launches"] + rel["launches"] + sr["k1_launches"]
-                     + t14["k1_collect_launches"] + t15["k1_launches"] + t16["k1_launches"]),
+                     + t14["k1_collect_launches"] + t15["k1_launches"] + t16["k1_launches"]
+                     + t20["k1_launches"]),
         "max_abs_err": max(k["worst"]["abs"], k3["k1_dense_a"]["abs"],
                            sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"]),
         "ms": big["ms"],
@@ -1659,14 +1990,15 @@ def main() -> int:
         "route": "cuda",
         "source": "gym_flock_tpu_torch/csrc/rowmin.cu",
         "replaces": "gym_flock_tpu/ops/rowmin.py:72",
-        "launches": xf["launches"] + cv["launches"],
+        "launches": (xf["launches"] + cv["launches"] + t17["k5_launches"]
+                     + t17["eval_k5_launches"] + t18["k5_launches"] + t19["k5_launches"]),
         "max_abs_err": k5r["max_abs_err"],
         "ms": k5_big["ms"],
         "plain_ms": k5_big["plain_ms"],
         "bound_ms": k5_big["bound_ms"],
         "bound_by": k5_big["bound_by"],
         "library_ms": None,
-        "timings": k5r["cases"][:2],
+        "timings": k5r["cases"][:2] + [t17["k5_timing"]],
     }, {
         "name": "sparse_sums",
         "route": "cuda",

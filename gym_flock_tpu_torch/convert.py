@@ -17,7 +17,7 @@ from gym_flock_tpu_torch.envs.flocking import FlockingParams, FlockingState, _st
 
 __all__ = [
     "params_from_jax", "state_from_numpy", "coverage_params_from_jax",
-    "coverage_state_from_numpy", "gnn_params_from_flax",
+    "coverage_state_from_numpy", "gnn_params_from_flax", "edge_graph_net_params_from_flax",
 ]
 
 
@@ -96,17 +96,41 @@ def gnn_params_from_flax(variables, model: torch.nn.Module) -> torch.nn.Module:
     ``params/_MLP_0/Dense_i/{kernel [in, out], bias [out]}`` map to
     ``model.mlp.layers[i]`` as ``weight = kernel.T`` and ``bias``.
     """
-    dense = variables["params"]["_MLP_0"]
-    layers = model.mlp.layers
+    _load_mlp(variables["params"]["_MLP_0"], model.mlp, "_MLP_0")
+    return model
+
+
+def edge_graph_net_params_from_flax(variables, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a flax ``EdgeGraphNet``'s variables into the port's ``model`` of
+    the same widths and rounds, in place, and return it.
+
+    flax names the compact MLPs in creation order: ``_MLP_0`` the node
+    encoder, ``_MLP_1`` the edge encoder, ``_MLP_{2+2r}`` round r's message
+    MLP and ``_MLP_{3+2r}`` its node MLP, ``_MLP_{2+2*rounds}`` the logit
+    head (``model.mlps()`` lists the port's in that order).  Raises on any
+    count or shape mismatch.
+    """
+    params = variables["params"]
+    mlps = model.mlps()
+    if len(params) != len(mlps):
+        raise ValueError(f"flax EdgeGraphNet has {len(params)} MLPs, the model {len(mlps)}")
+    for i, mlp in enumerate(mlps):
+        _load_mlp(params[f"_MLP_{i}"], mlp, f"_MLP_{i}")
+    return model
+
+
+def _load_mlp(dense, mlp, name: str) -> None:
+    """``Dense_i/{kernel [in, out], bias [out]}`` into ``mlp.layers[i]`` as
+    ``weight = kernel.T`` and ``bias``."""
+    layers = mlp.layers
     if len(dense) != len(layers):
-        raise ValueError(f"flax MLP has {len(dense)} Dense layers, the model {len(layers)}")
+        raise ValueError(f"flax {name} has {len(dense)} Dense layers, the model {len(layers)}")
     with torch.no_grad():
         for i, layer in enumerate(layers):
             kernel = np.asarray(dense[f"Dense_{i}"]["kernel"], np.float32)
             bias = np.asarray(dense[f"Dense_{i}"]["bias"], np.float32)
-            if kernel.T.shape != tuple(layer.weight.shape):
-                raise ValueError(f"Dense_{i}: kernel {kernel.shape} does not fit a weight "
-                                 f"{tuple(layer.weight.shape)}")
+            if kernel.T.shape != tuple(layer.weight.shape) or bias.shape != tuple(layer.bias.shape):
+                raise ValueError(f"{name}/Dense_{i}: kernel {kernel.shape} does not fit a "
+                                 f"weight {tuple(layer.weight.shape)}")
             layer.weight.copy_(torch.from_numpy(kernel.T.copy()))
             layer.bias.copy_(torch.from_numpy(bias.copy()))
-    return model

@@ -100,6 +100,16 @@ class CoverageParams:
         return self.max_nodes * self.n_actions
 
     @property
+    def n_action_edges(self) -> int:
+        # the bidirectional action edges at the buffer's tail
+        return 2 * self.n_actions * self.n_robots
+
+    @property
+    def n_comm_edges(self) -> int:
+        # robot-robot comm edge slots (the comm_edges mode, not ported yet)
+        return self.n_robots * (self.n_robots - 1) if self.comm_edges else 0
+
+    @property
     def n_edge_feat(self) -> int:
         base = 3 if self.pos_delta else 1
         return base + (1 if self.last_edge_feature else 0)
@@ -199,8 +209,11 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
 
     conflict_rounds: int = 0
 
-    def default_params(self) -> CoverageParams:
-        return CoverageParams(bank=prepare_bank(default_coverage_bank()))
+    def default_params(self, device="cuda") -> CoverageParams:
+        """Coverage-v0's defaults with the default bank on ``device`` (the
+        card unless the caller asks for the host; without a card it
+        raises)."""
+        return CoverageParams(bank=prepare_bank(default_coverage_bank(device=device)))
 
     # ------------------------------------------------------------------ reset
 
@@ -463,10 +476,11 @@ def default_coverage_bank(
     horizon: int = 10,
     seed: int = 0,
     kind: str = "coverage",
-    device="cpu",
+    device="cuda",
     **map_kwargs,
 ):
-    """Build (and memoize) a bank of coverage graphs on ``device``.
+    """Build (and memoize) a bank of coverage graphs on ``device`` (default
+    the card; pass ``"cpu"`` for the host; without a card it raises).
 
     ``kind='coverage'`` draws Coverage-v0 road-lattice maps; ``kind=
     'occupancy'`` draws sub-windows of an occupancy map (CoverageARL,

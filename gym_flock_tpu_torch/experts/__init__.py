@@ -1,0 +1,2 @@
+"""Host-side experts (counterpart of ``gym_flock_tpu/experts``): the native
+VRP solver and the coverage VRP policy on it."""

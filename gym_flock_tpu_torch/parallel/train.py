@@ -18,7 +18,7 @@ msgpack checkpoints.
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -79,15 +79,18 @@ def collect_large_flocking_batch(env, params, generator: torch.Generator, n_envs
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    step: int = 0, generator: Optional[torch.Generator] = None) -> None:
-    """Write the model's and the optimizer's ``state_dict``, ``step`` and the
-    generator's state to ``path``: to a temporary file first, then
+                    step: int = 0, generator: Optional[torch.Generator] = None,
+                    extra: Optional[Dict[str, Any]] = None) -> None:
+    """Write the model's and the optimizer's ``state_dict``, ``step``, the
+    generator's state and ``extra`` (tensors and ints, e.g. a replay buffer
+    and its cursor) to ``path``: to a temporary file first, then
     ``os.replace``, so that a crash mid-write never leaves a torn file."""
     blob = {
         "model": model.state_dict(),
         "optimizer": optimizer.state_dict(),
         "step": int(step),
         "generator": None if generator is None else generator.get_state(),
+        "extra": dict(extra or {}),
     }
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(blob, tmp)
@@ -95,14 +98,18 @@ def save_checkpoint(path: str, model: torch.nn.Module, optimizer: torch.optim.Op
 
 
 def restore_checkpoint(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                       generator: Optional[torch.Generator] = None) -> int:
-    """Load a :func:`save_checkpoint` file into ``model``, ``optimizer`` and
-    (when both have one) ``generator``, in place; returns the step."""
+                       generator: Optional[torch.Generator] = None,
+                       extra: Optional[Dict[str, Any]] = None) -> int:
+    """Load a :func:`save_checkpoint` file into ``model``, ``optimizer``,
+    (when both have one) ``generator`` and (when given) the dict ``extra``,
+    in place; returns the step.  ``extra``'s tensors come back on the CPU."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(blob["model"])
     optimizer.load_state_dict(blob["optimizer"])
     if generator is not None and blob["generator"] is not None:
         generator.set_state(blob["generator"])
+    if extra is not None:
+        extra.update(blob.get("extra", {}))
     return blob["step"]
 
 
@@ -135,10 +142,13 @@ class _ImitationTrainer:
         *inputs, actions = batch
         return torch.mean((self.model(*inputs) - actions) ** 2)
 
+    def _batch_loss(self, batch) -> torch.Tensor:
+        return self.loss_fn(*batch)
+
     def update(self, batch) -> torch.Tensor:
         """One Adam step on ``batch``; returns the loss before the step."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(*batch)
+        loss = self._batch_loss(batch)
         loss.backward()
         self.optimizer.step()
         self.step += 1
@@ -162,6 +172,12 @@ class _ImitationTrainer:
         from the saved step with the saved generator state, so interrupt and
         resume reproduce the run that never stopped.
         """
+        return self._fit(generator, n_iters, n_envs, n_steps, ckpt_path, ckpt_every, resume)
+
+    def _fit(self, generator, n_iters, n_envs, n_steps, ckpt_path, ckpt_every, resume,
+             after_step: Optional[Callable[[int], None]] = None) -> List[float]:
+        """:meth:`fit`'s loop; ``after_step(step)`` runs after each step's
+        checkpoint."""
         self.init(generator)
         if ckpt_path and resume and os.path.exists(ckpt_path):
             self.step = restore_checkpoint(ckpt_path, self.model, self.optimizer, generator)
@@ -171,6 +187,8 @@ class _ImitationTrainer:
             done = i + 1 == n_iters
             if ckpt_path and (done or (ckpt_every and (i + 1) % ckpt_every == 0)):
                 save_checkpoint(ckpt_path, self.model, self.optimizer, self.step, generator)
+            if after_step is not None:
+                after_step(i + 1)
         return losses
 
 

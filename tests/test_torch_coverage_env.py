@@ -286,7 +286,7 @@ def test_generator_on_another_device_raises():
 
 def test_default_params_build_coverage_v0():
     env = CoverageEnv()
-    params = env.default_params()
+    params = env.default_params(device="cpu")
     assert params.n_robots == 6 and "cost_rows_pad" in params.bank
     state, obs = env.reset_env(torch.Generator().manual_seed(1), params, 2)
     assert obs["nodes"].shape == (2, 500, 3)
@@ -302,3 +302,19 @@ def test_factory_builds_the_bank_on_the_card_by_default():
     else:
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             gft.make("Coverage-v0", n_graphs=1)
+
+
+def test_default_params_and_bank_build_on_the_card_by_default():
+    """``CoverageEnv().default_params()`` and ``default_coverage_bank()``
+    without ``device=`` build on the card, as ``make`` does; without one
+    they raise instead of falling back to the host."""
+    from gym_flock_tpu_torch.envs.coverage import default_coverage_bank
+
+    if torch.cuda.is_available():
+        assert CoverageEnv().default_params().device.type == "cuda"
+        assert default_coverage_bank(n_graphs=1)["n_targets"].device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            CoverageEnv().default_params()
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            default_coverage_bank(n_graphs=1)

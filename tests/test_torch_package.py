@@ -7,16 +7,19 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "gym_flock_tpu_torch"
-_JAX_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|gym_flock_tpu)(\.|\s|$)", re.M)
+_JAX_IMPORT = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|optax|gym_flock_tpu)(\.|\s|$)", re.M)
 
 
 def _port_files():
-    return sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
+    return sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + [
+        "chip_smoke.py", "tools/train_quality_torch.py", "tools/profile_coverage_train.py"]
 
 
 @pytest.mark.parametrize("rel", _port_files())
 def test_port_imports_no_jax(rel):
-    """Neither the port nor chip_smoke.py imports jax or the JAX package."""
+    """Neither the port, chip_smoke.py nor the port's training scripts under
+    tools/ import jax, flax, optax or the JAX package."""
     text = (REPO / rel).read_text()
     assert not _JAX_IMPORT.search(text), rel
 
@@ -26,6 +29,9 @@ def test_kernel_sources_are_package_data():
     data = cfg["tool"]["setuptools"]["package-data"]["gym_flock_tpu_torch"]
     assert "csrc/*.cu" in data
     assert any(PORT.glob("csrc/*.cu"))
+    # the port's copy of the VRP solver, compiled at first use
+    assert "experts/vrp/*.cc" in data
+    assert (PORT / "experts" / "vrp" / "vrp_solver.cc").is_file()
     include = cfg["tool"]["setuptools"]["packages"]["find"]["include"]
     assert any(re.fullmatch(pat.replace("*", ".*"), "gym_flock_tpu_torch") for pat in include)
     assert "torch" in cfg["project"]["optional-dependencies"]
