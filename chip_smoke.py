@@ -143,6 +143,42 @@ Phases, each printing one line:
    envs x 16 steps, 4 grad steps.  K1 once per reset draw; iteration 0's
    labels equal ``turner_controller`` on the stored states; losses
    finite, parameters moved.
+21. the five flocking variants at N=100: ``Flocking-v0`` with B=8192 and
+   ``FlockingLeader-v0``, ``FlockingObstacle-v0``, ``FlockingStochastic-v0``
+   and ``FlockingTwoFlocks-v0`` with B=1024, each ``reset_env`` and 8 steps
+   of ``expert_rollout``.  K1 exactly once per reset draw (none for the
+   deterministic Obstacle and TwoFlocks resets), no other kernel; K1
+   ("full") on each randomly drawn reset state against its plain version:
+   the degree and min r^2 (channels 8 and 9, the acceptance test's)
+   exactly, the sums as in phase 3.
+22. ``Shepherding-v0`` (10 shepherds, 20 sheep), B=4096, 64 expert steps;
+   no kernel on this path.
+23. ``FormationFlying-v0`` B=8192 and ``LQR-v0`` B=4096, 64 steps each
+   under random actions, then 64 steps of LQR's expert (whose cost must be
+   below the random actions'); the LQR system built on the card is held to
+   the host's build (each matrix within 1e-3 of its largest entry).
+24. ``Mapping-v0`` (N=100, T=10,000; bench metric 8's size) B=128 with 32
+   greedy expert steps, and ``MappingVel-v0``, ``MappingDisc-v0``,
+   ``MappingLocal-v0`` B=1024 with 4 steps each; the expert must observe
+   targets.
+25. ``FlockingMulti-v0`` (N=80), B=4096, 16 consensus expert steps: K1
+   exactly once per reset draw, K2 exactly twice per aggregation (one call
+   over the 12 pooled features, one launch a chunk of 8; the reset's
+   aggregation and one a step).  K1 on the reset's state against its plain
+   version as in phase 21; K2 on the reset's buffer against its plain
+   version: the degree exactly, raw and mean-pooled sums max |k - p| / (1 +
+   |p|) < 1e-6.  K1 ("full", the acceptance test) and K2 (F=12) timed at
+   this shape.
+   Each of phases 21-25 repeats its first step on the host from the first
+   envs of the card's state (64; 4 for Mapping-v0): the action and the new
+   state from the same state, the observation at the card's new state (the
+   1/r^4 features of close pairs amplify the integration's rounding).
+   Indices, masks, adjacency supports and LoS branches (on states whose
+   bearings lie 1e-4 rad or more from the 2- and 5-degree thresholds)
+   exactly; actions and rewards atol 1e-4, states atol 1e-5, feature sums
+   max |k - p| / (1 + |p|) < 1e-4, mean-pooled networks atol 1e-6, an LQR
+   step max |k - p| / (1 + |p|) < 1e-5; stochastic steps with their dt
+   replayed or their noise zeroed on both sides.
 
 Then one JSON line describing each kernel (its time, its plain version's,
 and its bound: the larger of the operations it must do over the f32 peak
@@ -174,6 +210,8 @@ SPARSE_STEPS = 32  # bench metric 4's rollout length
 SPARSE_SEED = 10
 K5_CASES = ("ExploreFull B=512 R=100", "Coverage B=8192 R=6 G=8", "ragged B=3 R=33 T=300 G=2")
 U_ATOL = 1e-4
+STATE_ATOL = 1e-5  # a step's state against the host's
+NETWORK_ATOL = 1e-6  # a mean-pooled network against the host's
 REPS = 7
 CR2 = 0.9 * 0.9  # the flocking envs' comm_radius2
 # K2 and K4 against their plain versions: both sum in f64 and round to f32
@@ -461,6 +499,19 @@ def k1_timing(x, cr, cr2, channels: str, plain: bool) -> dict:
                groups=groups, warps_per_sm=warps_per_sm(blocks, threads),
                **pair_bound(pairs, hits, nbytes(x) + b * n * 16 * 4), library_ms=None)
     return res
+
+
+def k1_reset_check(x, cr, cr2) -> dict:
+    """K1's "full" channels on a reset's batch ``x`` against the plain
+    version: the degree and min r^2 (channels 8 and 9, which the acceptance
+    test reads) exactly, the sums as phase 3 holds them."""
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+    got = k1.flocking_sums_block(x, x, 0, 0, cr, cr2, channels="full")
+    want = k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr2, "full")
+    err = compare_sums(got, want, "full")
+    hold("min r^2 (channel 9)", got[..., 9], want[..., 9], 0, "exact")
+    return err
 
 
 def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
@@ -1019,11 +1070,32 @@ class AdjErrors:
         return rel
 
 
-def compare_deg(got, want) -> None:
+def hold(what: str, got, want, tol: float, measure: str = "rel") -> float:
+    """Raise unless ``got`` (from the card) is within ``tol`` of ``want`` (a
+    host copy or a plain version): ``"rel"`` max |k-p|/(1+|p|), ``"abs"``
+    max |k-p|, ``"exact"`` equal (``tol`` unused).  Returns the measured
+    error."""
     import torch
 
-    if not torch.equal(got, want):
-        raise AssertionError(f"degree differs in {int((got != want).sum())} agents")
+    got, want = got.cpu(), want.cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against {tuple(want.shape)}")
+    if measure == "exact":
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} differs in {int((got != want).sum())} entries")
+        return 0.0
+    got, want = got.double(), want.double()
+    if not (got.isfinite().all() and want.isfinite().all()):
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    err = float((diff if measure == "abs" else diff / (1.0 + want.abs())).max())
+    if not err <= tol:
+        raise AssertionError(f"{what}: {measure} error {err:.3e} > {tol}")
+    return err
+
+
+def compare_deg(got, want) -> None:
+    hold("degree", got, want, 0, "exact")
 
 
 def _pool(out, deg, mean_pool: bool):
@@ -1810,6 +1882,475 @@ def phase_flocking_dagger(device: str, n_envs: int, n_steps: int, n_grad_steps: 
             "reset_tries": tries, "filled": trainer.state.filled}
 
 
+# --------------------------------------------------------------------------
+# Phases 21-25: the flocking variants, shepherding, formation, LQR, mapping
+# and delayed-aggregation flocking
+# --------------------------------------------------------------------------
+
+CPU_ENVS = 64  # envs of a batch whose first step is repeated on the host
+FLOCKING_VARIANTS = (("Flocking-v0", 8192), ("FlockingLeader-v0", 1024),
+                     ("FlockingObstacle-v0", 1024), ("FlockingStochastic-v0", 1024),
+                     ("FlockingTwoFlocks-v0", 1024))
+MAPPING_OTHERS = ("MappingVel-v0", "MappingDisc-v0", "MappingLocal-v0")
+LQR_SYSTEM_TOL = 1e-3  # the card's LQR system against the host's build (of max |host|)
+LQR_STEP_TOL = 1e-5  # max |k - p| / (1 + |p|) of an LQR step or expert action
+
+
+def host_head(obj, k: int | None = CPU_ENVS):
+    """The first ``k`` envs (all where ``k`` is None) of a tensor, or of a
+    tuple or dataclass of them, nested, on the host."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return (obj if k is None else obj[:k]).cpu()
+    if isinstance(obj, tuple):
+        return tuple(host_head(o, k) for o in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: host_head(getattr(obj, f.name), k)
+                                           for f in dataclasses.fields(obj)})
+    return obj
+
+
+def check_all_finite(what: str, *tensors) -> None:
+    for t in tensors:
+        if t.is_floating_point() and not bool(t.isfinite().all()):
+            raise AssertionError(f"non-finite values in {what}")
+
+
+def launch_total() -> int:
+    """Launches of every kernel since the last ``reset_counts``."""
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import rowmin as k5
+    from gym_flock_tpu_torch.ops import sparse_flocking as sf
+
+    return k1.launches + k2.launches + k5.launches + sf.launches + sf.adj_launches
+
+
+def flocking_first_step_on_host(env, params, state0, traj, gen_state, device: str) -> dict:
+    """The first fused step of ``expert_rollout`` from the first envs of
+    ``state0``, repeated on the host and held to the card's ``traj`` at step
+    0: the action from the same state; the integration (the stochastic
+    variant's dt replayed from ``gen_state``) against the card's own first
+    step, replayed; the observation, network and reward at the card's new
+    state, as the 1/r^4 features of close pairs amplify the integration's
+    rounding."""
+    import torch
+
+    from gym_flock_tpu_torch.envs.flocking import (
+        FlockingAbsoluteEnv, FlockingStochasticEnv, _instant_cost)
+
+    x0 = host_head(state0.x)
+    k = x0.shape[0]
+    centralized = params.centralized
+    _, _, gx, gy, dvx, dvy = env._fused_pass(x0, params, centralized)
+    u = env._rollout_action(torch.stack((-gx - dvx, -dvy - gy), dim=-1), params)
+    replay = torch.Generator(device=device)
+    replay.set_state(gen_state)
+    if isinstance(env, FlockingStochasticEnv):
+        dt = env._draw_dt(replay, params, state0.x)[:k].cpu()
+        x1 = env._integrate_scaled(x0, u, dt, params)
+        replay.set_state(gen_state)
+    else:
+        x1 = env._rollout_integrate(x0, u, params, None)
+    card_x1 = host_head(env.expert_rollout(state0, params, 1, generator=replay)[0].x)
+    values, network = env._fused_pass(card_x1, params, centralized)[:2]
+    absolute = isinstance(env, FlockingAbsoluteEnv)
+    return {
+        "u_err": hold("first action", traj["u"][:k, 0], u, U_ATOL, "abs"),
+        "x_err": hold("first state", card_x1, x1, STATE_ATOL, "abs"),
+        "values_err": hold("first observation", traj["values"][:k, 0], values,
+                           STATE_ATOL if absolute else SUM_TOL, "abs" if absolute else "rel"),
+        "network_err": hold("first network", traj["network"][:k, 0], network, NETWORK_ATOL,
+                            "abs"),
+        "reward_err": hold("first reward", traj["reward"][:k, 0], _instant_cost(card_x1),
+                           U_ATOL, "abs"),
+    }
+
+
+def phase_flocking_variants(device: str, variants, n_steps: int) -> dict:
+    """Phase 21: each flocking variant's reset and fused expert rollout; K1
+    once a reset draw (none for the deterministic resets), and held to its
+    plain version on the reset's state."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+    out = {"k1_launches": 0, "k1_vs_plain": {"rel": 0.0, "ulp9": 0, "abs": 0.0}}
+    for env_id, n_envs in variants:
+        env, params = gft.make(env_id)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        state0, obs0 = env.reset_env(gen, params, n_envs)
+        _sync()
+        reset_s = time.perf_counter() - t0
+        gen_state = gen.get_state()
+        t1 = time.perf_counter()
+        final, traj = env.expert_rollout(state0, params, n_steps, generator=gen)
+        _sync()
+        roll_s = time.perf_counter() - t1
+        launches, tries = k1.launches, env.last_reset_tries
+        if launches != tries or launch_total() != launches:
+            raise AssertionError(f"{env_id}: K1 {launches} launches ({launch_total()} in all) "
+                                 f"for {tries} reset draws")
+        check_all_finite(env_id, final.x, *obs0, *traj.values())
+        first = flocking_first_step_on_host(env, params, state0, traj, gen_state, device)
+        if launches:
+            err = k1_reset_check(state0.x, params.comm_radius, params.comm_radius2)
+            out["k1_vs_plain"] = {k: max(v, err[k]) for k, v in out["k1_vs_plain"].items()}
+        out["k1_launches"] += launches
+        out[env_id] = {"B": n_envs, "N": params.n_agents, "k1_launches": launches,
+                       "reset_tries": tries, "reset_ms": reset_s * 1e3,
+                       "ms_a_step": roll_s * 1e3 / n_steps,
+                       "env_steps_per_s": n_envs * n_steps / roll_s,
+                       "mean_reward": float(traj["reward"].mean()), "first_step": first}
+        del state0, obs0, final, traj
+    if out["k1_launches"] == 0:
+        raise AssertionError("no flocking variant's reset ran on K1")
+    return out
+
+
+def bearings_clear(x, n_shepherds: int, margin: float = 1e-4):
+    """``[B]`` bool: no shepherd's bearing difference to a sheep, a shepherd or
+    the goal lies within ``margin`` rad of 2 or 5 degrees, where an ulp of
+    ``atan2`` could flip a line-of-sight branch."""
+    import torch
+
+    x = x.double()
+    sx = x[:, :n_shepherds]
+    targets = torch.cat((x[..., :2], torch.zeros_like(x[:, :1, :2])), dim=1)
+    d = targets[:, None, :, :] - sx[:, :, None, :2]
+    ang = torch.atan2(d[..., 1], d[..., 0]) - sx[..., 2, None]
+    ang = torch.atan2(torch.sin(ang), torch.cos(ang)).abs()
+    near = torch.stack([(ang - math.radians(t)).abs().amin(dim=(1, 2)) for t in (2.0, 5.0)])
+    return (near > margin).all(dim=0)
+
+
+def phase_shepherding(device: str, n_envs: int, n_steps: int) -> dict:
+    """Phase 22: Shepherding-v0's reset and expert steps (no kernel on this
+    path); the first step's LoS branches, action and step held to the host."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+
+    env, params = gft.make("Shepherding-v0")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    state0, _ = env.reset_env(gen, params, n_envs)
+    _sync()
+    reset_s = time.perf_counter() - t0
+    state, rewards = state0, []
+    t1 = time.perf_counter()
+    for t in range(n_steps):
+        u = env.controller(state, params)
+        state, obs, r, _, _ = env.step_env(gen, state, u, params)
+        if t == 0:
+            u0, first = u, (state, obs, r)
+        rewards.append(r)
+    _sync()
+    steps_s = time.perf_counter() - t1
+    if launch_total() != 0:
+        raise AssertionError(f"{launch_total()} kernel launches on a path that runs none")
+    rewards = torch.stack(rewards, dim=1)
+    check_all_finite("Shepherding-v0", state.x, rewards, *obs)
+
+    s0 = host_head(state0)
+    clear = bearings_clear(s0.x, params.n_shepherds)
+    if int(clear.sum()) < s0.x.shape[0] // 2:
+        raise AssertionError(f"only {int(clear.sum())} reset states clear of the LoS thresholds")
+    card_branches = host_head(env.los_branches(state0, params))
+    hold("LoS branches", card_branches[clear], env.los_branches(s0, params)[clear], 0, "exact")
+    u_host = env.controller(s0, params)
+    st, *_ = env.step_env(None, s0, host_head(u0), params)
+    # the observation and reward at the card's new state
+    c1, (c_values, c_adj), c_r = host_head(first)
+    values, adj = env._obs(c1, params)
+    r = env._instant_cost(c1.x, params)
+    hold("adjacency support", c_adj > 0, adj > 0, 0, "exact")
+    return {
+        "B": n_envs, "reset_ms": reset_s * 1e3, "ms_a_step": steps_s * 1e3 / n_steps,
+        "env_steps_per_s": n_envs * n_steps / steps_s, "kernel_launches": 0,
+        "reset_branch_counts": torch.bincount(card_branches.flatten(), minlength=4).tolist(),
+        "envs_clear_of_thresholds": int(clear.sum()),
+        "first_step": {
+            "u_err": hold("expert action", host_head(u0)[clear], u_host[clear], U_ATOL, "abs"),
+            "x_err": hold("state", c1.x, st.x, STATE_ATOL, "abs"),
+            "values_err": hold("observed values", c_values, values, STATE_ATOL, "abs"),
+            "adjacency_rel": hold("1/r adjacency", c_adj, adj, SUM_TOL),
+            "reward_err": hold("reward", c_r, r, U_ATOL, "abs"),
+        },
+        "mean_reward_last_step": float(rewards[:, -1].mean()),
+    }
+
+
+def phase_formation_lqr(device: str, n_formation: int, n_lqr: int, n_steps: int) -> dict:
+    """Phase 23: FormationFlying-v0 and LQR-v0 under random actions, then
+    LQR's expert (no kernel on these paths); the first steps held to the
+    host, the card's LQR system to the host's build."""
+    import dataclasses
+
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs.lqr import build_lqr_system
+
+    out = {}
+    # --- FormationFlying-v0, random actions
+    env, params = gft.make("FormationFlying-v0")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    state0, _ = env.reset_env(gen, params, n_formation)
+    state = state0
+    for t in range(n_steps):
+        a = env.action_space(params).sample(gen, (n_formation,))
+        state, obs, r, _, _ = env.step_env(gen, state, a, params)
+        if t == 0:
+            a0, first = a, (state.x, r)
+    _sync()
+    form_s = time.perf_counter() - t0
+    check_all_finite("FormationFlying-v0", state.x, r)
+    s0 = host_head(state0)
+    st, _, r_host, _, _ = env.step_env(None, s0, host_head(a0), params)
+    out["FormationFlying-v0"] = {
+        "B": n_formation, "ms_a_step": form_s * 1e3 / n_steps,
+        "env_steps_per_s": n_formation * n_steps / form_s,
+        "first_step": {
+            "x_err": hold("formation state", host_head(first[0]), st.x, STATE_ATOL, "abs"),
+            "reward_err": hold("formation reward", host_head(first[1]), r_host, U_ATOL, "abs"),
+            "connectivity": hold("connectivity", host_head(env.connectivity(state0, params)),
+                                 env.connectivity(s0, params), 0, "exact"),
+        }}
+
+    # --- LQR-v0: the system built on the card, random actions, the expert
+    _sync()
+    t0 = time.perf_counter()
+    env, params = gft.make("LQR-v0", device=device)
+    _sync()
+    build_s = time.perf_counter() - t0
+    host_sys = build_lqr_system(params, 0, "cpu")
+    system_err = {}
+    for name in ("a_net", "a_sys", "b_sys", "q_sys", "k_gain"):
+        card, host = getattr(params.system, name).cpu().double(), getattr(host_sys, name).double()
+        system_err[name] = float((card - host).abs().max() / host.abs().max())
+        if not system_err[name] <= LQR_SYSTEM_TOL:
+            raise AssertionError(f"LQR {name} built on the card differs from the host's by "
+                                 f"{system_err[name]:.3e} of its largest entry")
+    quiet = dataclasses.replace(params, system=dataclasses.replace(
+        params.system, std_dev=torch.zeros_like(params.system.std_dev)))
+    quiet_host = host_head(quiet, None)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    res = {"B": n_lqr, "system_build_s": build_s, "system_rel_err": system_err}
+    for policy in ("random", "expert"):
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        state0, _ = env.reset_env(gen, params, n_lqr)
+        state, rewards = state0, []
+        for t in range(n_steps):
+            if policy == "random":
+                a = env.action_space(params).sample(gen, (n_lqr,))
+            else:
+                a = env.controller(state, params)
+            if t == 0:
+                a0 = a
+            state, obs, r, _, _ = env.step_env(gen, state, a, params)
+            rewards.append(r)
+        _sync()
+        seconds = time.perf_counter() - t0
+        if launch_total() != 0:
+            raise AssertionError(f"{launch_total()} kernel launches on a path that runs none")
+        check_all_finite(f"LQR-v0 {policy}", state.x, *rewards)
+        # the first step without its noise, on the card and on the host
+        card = env.step_env(gen, state0, a0, quiet)
+        host = env.step_env(torch.Generator(), host_head(state0), host_head(a0), quiet_host)
+        first = {"x_rel": hold(f"LQR {policy} state", host_head(card[0].x), host[0].x,
+                               LQR_STEP_TOL),
+                 "reward_rel": hold(f"LQR {policy} reward", host_head(card[2]), host[2],
+                                    SUM_TOL)}
+        if policy == "expert":
+            first["u_rel"] = hold("LQR expert", host_head(a0),
+                                  env.controller(host_head(state0), quiet_host), LQR_STEP_TOL)
+        res[policy] = {"ms_a_step": seconds * 1e3 / n_steps,
+                       "env_steps_per_s": n_lqr * n_steps / seconds,
+                       "mean_reward": float(torch.stack(rewards).mean()), "first_step": first}
+    if not res["expert"]["mean_reward"] > res["random"]["mean_reward"]:
+        raise AssertionError("the LQR expert's cost is not below random actions'")
+    out["LQR-v0"] = res
+    return out
+
+
+def mapping_first_step_on_host(env, params, state0, u0, first, k: int) -> dict:
+    """The selection pass at the first envs of ``state0``, and at the card's
+    state after the first step, on the host, held to the card: indices,
+    masks and credit exactly; the step's state and reward from the host's
+    own step within the CPU tests' tolerances."""
+    from gym_flock_tpu_torch.envs.mapping import _mapping_helpers
+
+    host_params = host_head(params, None)
+    s0 = host_head(state0, k)
+    card = _mapping_helpers(state0.x[:k], state0.unobserved[:k], params)
+    host = _mapping_helpers(s0.x, s0.unobserved, host_params)
+    for i, what in enumerate(("values", "network", "target table", "newly", "credit")):
+        hold(f"mapping {what} at the reset state", card[i], host[i], 0, "exact")
+    st, _, r, done, _ = env.step_env(None, s0, host_head(u0, k), host_params)
+    c_state, (c_values, c_network), c_r, c_done = host_head(first, k)
+    values, network, obs_target, newly, _ = _mapping_helpers(c_state.x, s0.unobserved,
+                                                             host_params)
+    hold("mapping observation after a step", c_values, values, 0, "exact")
+    hold("mapping network after a step", c_network, network, 0, "exact")
+    hold("mapping target table after a step", c_state.last_obs_target, obs_target, 0, "exact")
+    hold("mapping unobserved after a step", c_state.unobserved, s0.unobserved & ~newly, 0,
+         "exact")
+    hold("mapping done", c_done, done, 0, "exact")
+    return {
+        "x_err": hold("mapping state", c_state.x, st.x, STATE_ATOL, "abs"),
+        "reward_err": hold("mapping reward", c_r, r, U_ATOL, "abs"),
+    }
+
+
+def drive_mapping(device: str, env_id: str, n_envs: int, n_steps: int, host_envs: int) -> dict:
+    """One mapping id: reset, ``n_steps`` greedy expert steps (the random
+    index for MappingDisc-v0's zeros expert is its nearest target)."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+
+    env, params = gft.make(env_id, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    state0, _ = env.reset_env(gen, params, n_envs)
+    _sync()
+    reset_s = time.perf_counter() - t0
+    state, observed = state0, 0
+    t1 = time.perf_counter()
+    for t in range(n_steps):
+        u = env.controller(state, params)
+        before = state.unobserved
+        state, obs, r, done, _ = env.step_env(gen, state, u, params)
+        if t == 0:
+            u0, first = u, (state, obs, r, done)
+        observed += int((before & ~state.unobserved).sum())
+    _sync()
+    steps_s = time.perf_counter() - t1
+    if launch_total() != 0:
+        raise AssertionError(f"{launch_total()} kernel launches on a path that runs none")
+    check_all_finite(env_id, state.x, state.last_obs_target, r, *obs)
+    return {"B": n_envs, "N": params.n_agents, "T": params.n_targets,
+            "reset_ms": reset_s * 1e3, "ms_a_step": steps_s * 1e3 / n_steps,
+            "env_steps_per_s": n_envs * n_steps / steps_s, "targets_observed": observed,
+            "first_step": mapping_first_step_on_host(env, params, state0, u0, first,
+                                                     host_envs)}
+
+
+def phase_mapping(device: str, n_envs: int, n_steps: int, n_others: int,
+                  other_steps: int) -> dict:
+    """Phase 24: Mapping-v0 with the greedy expert at bench metric 8's size,
+    and the other three mapping ids a few steps each (no kernel on these
+    paths)."""
+    out = {"Mapping-v0": drive_mapping(device, "Mapping-v0", n_envs, n_steps, host_envs=4)}
+    if out["Mapping-v0"]["targets_observed"] == 0:
+        raise AssertionError("the greedy expert observed no target")
+    for env_id in MAPPING_OTHERS:
+        out[env_id] = drive_mapping(device, env_id, n_others, other_steps, host_envs=CPU_ENVS)
+    return out
+
+
+def phase_flocking_multi(device: str, n_envs: int, n_steps: int) -> dict:
+    """Phase 25: FlockingMulti-v0's reset (K1 once a draw) and consensus
+    expert steps (K2 once a chunk of 8 pooled features of each aggregation:
+    the reset's and one a step); K1 and K2 on the reset's state held to
+    their plain versions; the first step, without its noise, held to the
+    host; K1 and K2 timed at this shape."""
+    import dataclasses
+
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs.flocking_multi import _aggregate
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+    env, params = gft.make("FlockingMulti-v0")
+    pooled = params.nx * (params.filter_len - 1)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    state0, _ = env.reset_env(gen, params, n_envs)
+    _sync()
+    reset_s = time.perf_counter() - t0
+    state, rewards = state0, []
+    t1 = time.perf_counter()
+    for t in range(n_steps):
+        u = env.controller(state, params)
+        state, obs, r, _, _ = env.step_env(gen, state, u, params)
+        if t == 0:
+            u0 = u
+        rewards.append(r)
+    _sync()
+    steps_s = time.perf_counter() - t1
+    k1_launches, k2_launches, tries = k1.launches, k2.launches, env.last_reset_tries
+    if k1_launches != tries or k2_launches != k2.launches_for(pooled) * (n_steps + 1):
+        raise AssertionError(f"K1 {k1_launches} launches for {tries} reset draws, K2 "
+                             f"{k2_launches} for {n_steps + 1} aggregations of {pooled} "
+                             f"features")
+    if launch_total() != k1_launches + k2_launches:
+        raise AssertionError("launches of another kernel on FlockingMulti's path")
+    check_all_finite("FlockingMulti-v0", state.x, state.x_agg, obs, *rewards)
+
+    # K1 on the reset's state, and K2 on the reset's buffer as the next
+    # aggregation reads it, against their plain versions: the degrees
+    # exactly, K2's sums and pooled features within ADJ_TOL
+    x0 = state0.x
+    k1_err = k1_reset_check(x0, params.comm_radius, params.comm_radius2)
+    err = AdjErrors()
+    h = state0.x_agg[..., :pooled].contiguous()
+    out, deg = k2.adjacency_matmul_block(x0, x0, h, 0, 0, params.comm_radius2)
+    p_out, p_deg = k2.adjacency_matmul_block_reference(x0, x0, h, 0, 0, params.comm_radius2)
+    compare_deg(deg, p_deg)
+    err.check(out, p_out)
+    err.check(k2.adjacency_matmul(x0, h, params.comm_radius2),
+              plain_adjacency_matmul(x0, h, params.comm_radius2, True))
+
+    # the first step without its noise, on the card and on the host
+    quiet = dataclasses.replace(params, std_dev=0.0)
+    card = env.step_env(gen, state0, u0, quiet)
+    host = env.step_env(torch.Generator(), host_head(state0), host_head(u0), quiet)
+    c1 = host_head(card[0])
+    s0 = host_head(state0)
+    first = {
+        "u_err": hold("consensus action", host_head(u0), env.controller(s0, params), U_ATOL,
+                      "abs"),
+        "x_err": hold("state", c1.x, host[0].x, STATE_ATOL, "abs"),
+        # the host's aggregation at the card's new positions
+        "x_agg_rel": hold("aggregation buffer", c1.x_agg,
+                          _aggregate(c1.x, s0.x_agg, s0.init_vel, params), ADJ_TOL),
+        "reward_err": hold("reward", host_head(card[2]), host[2], U_ATOL, "abs"),
+    }
+    return {
+        "B": n_envs, "N": params.n_agents, "k1_launches": k1_launches,
+        "k2_launches": k2_launches, "reset_tries": tries, "reset_ms": reset_s * 1e3,
+        "ms_a_step": steps_s * 1e3 / n_steps, "env_steps_per_s": n_envs * n_steps / steps_s,
+        "mean_degree": float(p_deg.mean()),
+        "aggregation_vs_plain": {"rel": err.rel, "abs": err.abs}, "k1_vs_plain": k1_err,
+        "first_step": first, "mean_reward": float(torch.stack(rewards).mean()),
+        "k2_timing": k2_timing(f"FlockingMulti B={n_envs} N={params.n_agents} F={pooled}",
+                               x0, x0, h, 0, 0, plain=True),
+        "k1_timing": k1_timing(x0, params.comm_radius, params.comm_radius2, "full", plain=True),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1965,6 +2506,32 @@ def main() -> int:
     print("phase 20 DaggerTrainer FlockingRelative-v0 N=100 2 iterations of 8 envs x 16 steps: "
           + json.dumps(t20))
 
+    # 21. the five flocking variants
+    t21 = phase_flocking_variants(device, FLOCKING_VARIANTS, n_steps=8)
+    _sync()
+    print("phase 21 flocking variants, reset + 8 fused steps: " + json.dumps(t21))
+
+    # 22. Shepherding-v0
+    t22 = phase_shepherding(device, n_envs=4096, n_steps=64)
+    _sync()
+    print("phase 22 Shepherding-v0 B=4096 64 expert steps: " + json.dumps(t22))
+
+    # 23. FormationFlying-v0 and LQR-v0
+    t23 = phase_formation_lqr(device, n_formation=8192, n_lqr=4096, n_steps=64)
+    _sync()
+    print("phase 23 FormationFlying-v0 B=8192, LQR-v0 B=4096, 64 steps: " + json.dumps(t23))
+
+    # 24. the mapping envs
+    t24 = phase_mapping(device, n_envs=128, n_steps=32, n_others=1024, other_steps=4)
+    _sync()
+    print("phase 24 Mapping-v0 B=128 32 expert steps, the other mapping ids B=1024 4 steps: "
+          + json.dumps(t24))
+
+    # 25. FlockingMulti-v0 on K1 and K2
+    t25 = phase_flocking_multi(device, n_envs=4096, n_steps=16)
+    _sync()
+    print("phase 25 FlockingMulti-v0 B=4096 N=80 16 steps: " + json.dumps(t25))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
@@ -1976,15 +2543,16 @@ def main() -> int:
         "replaces": "gym_flock_tpu/ops/pallas_flocking.py:268",
         "launches": (large["launches"] + rel["launches"] + sr["k1_launches"]
                      + t14["k1_collect_launches"] + t15["k1_launches"] + t16["k1_launches"]
-                     + t20["k1_launches"]),
+                     + t20["k1_launches"] + t21["k1_launches"] + t25["k1_launches"]),
         "max_abs_err": max(k["worst"]["abs"], k3["k1_dense_a"]["abs"],
-                           sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"]),
+                           sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"],
+                           t21["k1_vs_plain"]["abs"], t25["k1_vs_plain"]["abs"]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": None,
-        "timings": k["timings"],
+        "timings": k["timings"] + [t25["k1_timing"]],
     }, {
         "name": "rowmin",
         "route": "cuda",
@@ -2017,16 +2585,16 @@ def main() -> int:
         "route": "cuda",
         "source": "gym_flock_tpu_torch/csrc/adj_matmul.cu",
         "replaces": "gym_flock_tpu/ops/pallas_flocking.py:488",
-        "launches": t14["k2_launches"] + t15["k2_launches"],
+        "launches": t14["k2_launches"] + t15["k2_launches"] + t25["k2_launches"],
         "backward_launches": t14["k2_backward_launches"],
         "checked_backward_launches": a2["backward_launches"],
-        "max_abs_err": a2["max_abs_err"],
+        "max_abs_err": max(a2["max_abs_err"], t25["aggregation_vs_plain"]["abs"]),
         "ms": a2["timings"][0]["ms"],
         "plain_ms": a2["timings"][0]["plain_ms"],
         "bound_ms": a2["timings"][0]["bound_ms"],
         "bound_by": a2["timings"][0]["bound_by"],
         "library_ms": None,
-        "timings": a2["timings"],
+        "timings": a2["timings"] + [t25["k2_timing"]],
     }, {
         "name": "sparse_adj",
         "route": "cuda",

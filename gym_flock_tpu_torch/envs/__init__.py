@@ -1,1 +1,2 @@
-"""Environment families ported so far: flocking."""
+"""Environment families: flocking (and its variants), coverage, shepherding,
+formation flying, networked LQR, mapping and delayed-aggregation flocking."""

@@ -1,18 +1,21 @@
 """Flocking environments in PyTorch, batched (counterpart of
 ``gym_flock_tpu/envs/flocking.py``).
 
-So far: ``FlockingRelativeEnv`` (``FlockingRelative-v0``),
-``LargeFlockingEnv`` (``FlockingLarge-v0``) and ``SparseFlockingEnv``
-(``FlockingSparse-v0``).  Every tensor leads with the batch of swarms: ``x``
-is ``[B, N, 4]`` rows of (px, py, vx, vy).
+``FlockingRelativeEnv`` (``FlockingRelative-v0``) and its variants
+``FlockingAbsoluteEnv`` (``Flocking-v0``), ``FlockingLeaderEnv``,
+``FlockingObstacleEnv``, ``FlockingStochasticEnv`` and
+``FlockingTwoFlocksEnv``; ``LargeFlockingEnv`` (``FlockingLarge-v0``) and
+``SparseFlockingEnv`` (``FlockingSparse-v0``).  Every tensor leads with the
+batch of swarms: ``x`` is ``[B, N, 4]`` rows of (px, py, vx, vy).
 
 At small N the fused observation/expert pass is dense PyTorch over
 ``[B, N, N]`` pair tensors, as the JAX package computes it with dense XLA
 ops.  ``LargeFlockingEnv`` computes every pairwise reduction through K1
-(``ops.flocking_sums``), and the reset acceptance test of both runs on K1's
-"full" channels (min r^2 and degree).  ``SparseFlockingEnv`` runs them on
-the cell-list pipeline and K3 (``ops.sparse_flocking``), with a Verlet table
-carried across the steps of its fused rollout.
+(``ops.flocking_sums``), and the rejection reset's acceptance test runs on
+K1's "full" channels (min r^2 and degree) for every env that draws its
+reset.  ``SparseFlockingEnv`` runs them on the cell-list pipeline and K3
+(``ops.sparse_flocking``), with a Verlet table carried across the steps of
+its fused rollout.
 """
 from __future__ import annotations
 
@@ -32,11 +35,17 @@ from gym_flock_tpu_torch.ops.flocking_sums import (
     turner_controller_large,
 )
 from gym_flock_tpu_torch.ops.pairwise import mean_pool_normalize, radius_adjacency
+from gym_flock_tpu_torch.utils import formations
 
 __all__ = [
     "FlockingParams",
     "FlockingState",
     "FlockingRelativeEnv",
+    "FlockingAbsoluteEnv",
+    "FlockingLeaderEnv",
+    "FlockingObstacleEnv",
+    "FlockingStochasticEnv",
+    "FlockingTwoFlocksEnv",
     "LargeFlockingEnv",
     "SparseFlockingEnv",
     "flocking_features",
@@ -56,11 +65,8 @@ class FlockingParams:
     """Parameters of the flocking family; defaults mirror reference
     flocking_relative.py:27-64.
 
-    Left out until their variants are ported: ``n_leaders``,
-    ``n_obstacles``, ``n_neighbors``, ``parity_exact``, ``dt_mean``,
-    ``dt_sigma``, ``stoch_scale`` and ``stoch_max_accel`` (the Leader,
-    Obstacle, Absolute, parity-mode and Stochastic envs read them; the envs
-    here do not).
+    Left out: ``parity_exact`` (the JAX package's bit-exact parity mode,
+    not ported yet).
     """
 
     n_agents: int = 100
@@ -72,6 +78,10 @@ class FlockingParams:
     max_reset_tries: int = 64
     # reference params_from_cfg scales r_max by sqrt(n) (flocking_relative.py:75)
     auto_scale_r_max: bool = True
+    # variant sizes: frozen leaders, obstacle agents, absolute-obs k
+    n_leaders: int = 2
+    n_obstacles: int = 4
+    n_neighbors: int = 7
     # SparseFlockingEnv rollouts: Verlet slack distance (the Hilbert sort and
     # candidate table are rebuilt only when an agent moved > skin/2 since the
     # last build).  None resolves to comm_radius; <= 0 rebuilds every step.
@@ -83,6 +93,11 @@ class FlockingParams:
     action_scalar: float = 10.0
     max_accel: float = 1.0
     min_dist_thresh: float = 0.1
+    # stochastic-dt variant (reference flocking_stoch.py:9-12)
+    dt_mean: float = 0.12
+    dt_sigma: float = 0.018
+    stoch_scale: float = 6.0
+    stoch_max_accel: float = 0.5
 
     @property
     def comm_radius2(self) -> float:
@@ -123,14 +138,23 @@ def _state_from_x(x: torch.Tensor) -> FlockingState:
 # =============================================================================
 
 
-def _pairwise_channels(x: torch.Tensor):
+def _pairwise_channels(x: torch.Tensor, obstacle_mask: torch.Tensor | None = None):
     """Channel-separated pairwise diffs ``(dx, dy, dvx, dvy, r2)``, each
-    ``[B, N, N]``, row minus column; r2 is +inf on the diagonal."""
+    ``[B, N, N]``, row minus column; r2 is +inf on the diagonal.
+
+    ``obstacle_mask`` (bool ``[N]``, shared by the batch; True = obstacle)
+    zeroes the velocity differences of obstacle rows AND columns (reference
+    flocking_obstacle.py:80-81)."""
     px, py, vx, vy = x.unbind(dim=-1)
     dx = px[..., :, None] - px[..., None, :]
     dy = py[..., :, None] - py[..., None, :]
     dvx = vx[..., :, None] - vx[..., None, :]
     dvy = vy[..., :, None] - vy[..., None, :]
+    if obstacle_mask is not None:
+        keep = ~obstacle_mask
+        vel_keep = keep[:, None] & keep[None, :]
+        dvx = torch.where(vel_keep, dvx, 0.0)
+        dvy = torch.where(vel_keep, dvy, 0.0)
     r2 = dx * dx + dy * dy
     n = x.shape[-2]
     eye = torch.eye(n, dtype=torch.bool, device=x.device)
@@ -156,13 +180,14 @@ def _feature_sums(dx, dy, dvx, dvy, r2, adj):
     )
 
 
-def flocking_features(x: torch.Tensor, comm_radius2):
+def flocking_features(x: torch.Tensor, comm_radius2,
+                      obstacle_mask: torch.Tensor | None = None):
     """The ``compute_helpers`` pass (reference flocking_relative.py:111-134).
 
     Returns ``(state_values [B,N,6], adj [B,N,N], adj_mean [B,N,N],
-    r2 [B,N,N])``.
+    r2 [B,N,N])``; ``obstacle_mask`` as in :func:`_pairwise_channels`.
     """
-    dx, dy, dvx, dvy, r2 = _pairwise_channels(x)
+    dx, dy, dvx, dvy, r2 = _pairwise_channels(x, obstacle_mask)
     adj = radius_adjacency(r2, comm_radius2)
     adj_mean = mean_pool_normalize(adj)
     return _feature_sums(dx, dy, dvx, dvy, r2, adj), adj, adj_mean, r2
@@ -181,14 +206,15 @@ def turner_potential_grad(pos_diff_c: torch.Tensor, r2: torch.Tensor, comm_radiu
 
 
 def turner_controller(
-    x: torch.Tensor, params: FlockingParams, centralized: bool | None = None
+    x: torch.Tensor, params: FlockingParams, centralized: bool | None = None,
+    obstacle_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Turner-2003 potential-field expert (reference flocking_relative.py:194-212):
     ``-(sum_j grad + sum_j dv)``, clipped to [-10, 10], over ``action_scalar``.
     Decentralized mode masks both terms by the adjacency."""
     if centralized is None:
         centralized = params.centralized
-    dx, dy, dvx, dvy, r2 = _pairwise_channels(x)
+    dx, dy, dvx, dvy, r2 = _pairwise_channels(x, obstacle_mask)
     gx = turner_potential_grad(dx, r2, params.comm_radius)
     gy = turner_potential_grad(dy, r2, params.comm_radius)
     if not centralized:
@@ -202,7 +228,8 @@ def turner_controller(
 
 
 def flocking_obs_expert_pass(
-    x: torch.Tensor, params: FlockingParams, centralized: bool = True
+    x: torch.Tensor, params: FlockingParams, centralized: bool = True,
+    obstacle_mask: torch.Tensor | None = None,
 ):
     """One pairwise pass giving everything the observation AND the Turner
     expert need at state ``x``.
@@ -211,23 +238,43 @@ def flocking_obs_expert_pass(
     the last four ``[B,N]``: the expert's summed potential gradients and
     velocity differences (adjacency-masked when ``centralized=False``).
     Centralized velocity sums use the closed form
-    ``sum_j (v_i - v_j) = N v_i - sum_j v_j``.
+    ``sum_j (v_i - v_j) = N v_i - sum_j v_j``, except under an
+    ``obstacle_mask``, whose zeroed rows and columns the closed form would
+    not see: there they are the masked row sums.
     """
-    dx, dy, dvx, dvy, r2 = _pairwise_channels(x)
-    adj = radius_adjacency(r2, params.comm_radius2)
-    values = _feature_sums(dx, dy, dvx, dvy, r2, adj)
+    channels = _pairwise_channels(x, obstacle_mask)
+    adj = radius_adjacency(channels[4], params.comm_radius2)
+    values = _feature_sums(*channels, adj)
     network = mean_pool_normalize(adj) if params.mean_pooling else adj
+    # decentralized velocity-consensus sums ARE feature channels 0/3
+    return (values, network,
+            *_expert_sums(x, channels, adj, params, centralized, obstacle_mask is not None,
+                          values[..., 0], values[..., 3]))
+
+
+def _expert_sums(x, channels, adj, params: FlockingParams, centralized: bool,
+                 masked: bool, s_dvx=None, s_dvy=None):
+    """``(s_gx, s_gy, s_dvx, s_dvy)`` of the Turner expert from one pass's
+    pairwise ``channels`` and adjacency: the potential gradients summed
+    (adjacency-masked when not ``centralized``) and the velocity-difference
+    sums, by the closed form ``N v_i - sum_j v_j`` when centralized and not
+    ``masked`` by an obstacle mask (whose zeroed rows and columns it would
+    not see).  A caller that already has the decentralized velocity sums
+    passes them as ``s_dvx``/``s_dvy``."""
+    dx, dy, dvx, dvy, r2 = channels
     gx = turner_potential_grad(dx, r2, params.comm_radius)
     gy = turner_potential_grad(dy, r2, params.comm_radius)
-    if centralized:
+    if not centralized:
+        gx, gy = gx * adj, gy * adj
+        if s_dvx is None:
+            s_dvx, s_dvy = (dvx * adj).sum(dim=-1), (dvy * adj).sum(dim=-1)
+    elif not masked:
         n = x.shape[-2]
         s_dvx = n * x[..., 2] - x[..., 2].sum(dim=-1, keepdim=True)
         s_dvy = n * x[..., 3] - x[..., 3].sum(dim=-1, keepdim=True)
     else:
-        # decentralized velocity-consensus sums ARE feature channels 0/3
-        gx, gy = gx * adj, gy * adj
-        s_dvx, s_dvy = values[..., 0], values[..., 3]
-    return values, network, gx.sum(dim=-1), gy.sum(dim=-1), s_dvx, s_dvy
+        s_dvx, s_dvy = dvx.sum(dim=-1), dvy.sum(dim=-1)
+    return gx.sum(dim=-1), gy.sum(dim=-1), s_dvx, s_dvy
 
 
 def _instant_cost(x: torch.Tensor) -> torch.Tensor:
@@ -237,9 +284,19 @@ def _instant_cost(x: torch.Tensor) -> torch.Tensor:
     return -1.0 * torch.var(v, dim=-2, correction=0).sum(dim=-1)
 
 
-def _integrate(x: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
-    """Euler double-integrator update (reference flocking_relative.py:98-105)."""
+def _integrate(x: torch.Tensor, u: torch.Tensor, dt,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Euler double-integrator update (reference flocking_relative.py:98-105).
+
+    ``dt`` is a float or a ``[B]`` tensor (one dt per swarm).  ``mask``
+    (float ``[N]``, 0 = frozen agent) makes the masked agents ignore their
+    control input (flocking_leader.py:27-31, flocking_obstacle.py:41-47).
+    """
+    if isinstance(dt, torch.Tensor) and dt.dim() == 1:
+        dt = dt[:, None]
     ux, uy = u[..., 0], u[..., 1]
+    if mask is not None:
+        ux, uy = ux * mask, uy * mask
     px = x[..., 0] + x[..., 2] * dt + ux * dt * dt * 0.5
     py = x[..., 1] + x[..., 3] * dt + uy * dt * dt * 0.5
     vx = x[..., 2] + ux * dt
@@ -269,8 +326,18 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
     # ------------------------------------------------------------ helpers
 
     def _obs(self, state: FlockingState, params: FlockingParams):
-        values, adj, adj_mean, _ = flocking_features(state.x, params.comm_radius2)
+        values, adj, adj_mean, _ = flocking_features(
+            state.x, params.comm_radius2, self._obstacle_mask(params, state.x)
+        )
         return values, (adj_mean if params.mean_pooling else adj)
+
+    def _obstacle_mask(self, params: FlockingParams, x: torch.Tensor):
+        """Bool ``[N]`` on x's device (True = obstacle agent), or ``None``."""
+        return None
+
+    def _integration_mask(self, params: FlockingParams, x: torch.Tensor):
+        """``[N]`` in x's dtype (0 = agent ignores its control), or ``None``."""
+        return None
 
     def _action_scale(self, params: FlockingParams):
         return params.action_scalar
@@ -343,7 +410,8 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
 
     def step_env(self, generator, state: FlockingState, action, params: FlockingParams):
         """Deterministic dynamics: ``generator`` is not used."""
-        x = _integrate(state.x, action * self._action_scale(params), params.dt)
+        x = _integrate(state.x, action * self._action_scale(params), params.dt,
+                       self._integration_mask(params, state.x))
         new_state = dataclasses.replace(state, x=x, time=state.time + 1)
         obs = self._obs(new_state, params)
         reward = _instant_cost(x)
@@ -353,13 +421,15 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
     def controller(self, state: FlockingState, params: FlockingParams, generator=None,
                    centralized=None):
         """The Turner expert; deterministic, so ``generator`` is not used."""
-        return turner_controller(state.x, params, centralized)
+        return turner_controller(state.x, params, centralized,
+                                 self._obstacle_mask(params, state.x))
 
     # ---------------------------------------------------- fused expert rollout
 
     def _fused_pass(self, x: torch.Tensor, params: FlockingParams, centralized: bool):
         """``(values, network, s_gx, s_gy, s_dvx, s_dvy)`` at ``x``."""
-        return flocking_obs_expert_pass(x, params, centralized)
+        return flocking_obs_expert_pass(x, params, centralized,
+                                        self._obstacle_mask(params, x))
 
     def _fused_carry_init(self, x: torch.Tensor, params: FlockingParams):
         """State carried across the steps of the fused rollout: ``None`` for
@@ -418,7 +488,22 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         return controls.clamp(-10.0, 10.0) / params.action_scalar
 
     def _rollout_integrate(self, x, u, params: FlockingParams, generator):
-        return _integrate(x, u * self._action_scale(params), params.dt)
+        """One dynamics step inside the fused rollout (variants override)."""
+        return _integrate(x, u * self._action_scale(params), params.dt,
+                          self._integration_mask(params, x))
+
+    def potential(self, state: FlockingState, params: FlockingParams) -> torch.Tensor:
+        """``[B]`` total Turner potential (reference flocking_relative.py:228-232):
+        the sum of 1/r^2 + log(r^2) over ordered pairs, out-of-range pairs
+        clamped to the value at the communication radius, the diagonal
+        zeroed."""
+        r2 = _pairwise_channels(state.x)[4]
+        cr2 = params.comm_radius2
+        p = 1.0 / r2 + torch.log(r2)
+        p = torch.where(r2 > cr2, 1.0 / cr2 + math.log(cr2), p)
+        n = params.n_agents
+        p = torch.where(torch.eye(n, dtype=torch.bool, device=r2.device), 0.0, p)
+        return p.sum(dim=(-2, -1))
 
     def get_stats(self, state: FlockingState) -> Dict[str, torch.Tensor]:
         """vel_diffs / min_dists, each ``[B, N]`` (reference
@@ -435,6 +520,198 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
 
     def action_space(self, params: FlockingParams):
         return Box(-params.max_accel, params.max_accel, (params.n_agents, 2))
+
+
+def _nearest(r2: torch.Tensor, k: int) -> torch.Tensor:
+    """``[B, N, k]`` int64 column indices of each row's k smallest ``r2``,
+    ascending, the lower index first among equal distances (as
+    ``jax.lax.top_k(-r2, k)``; ``torch.topk`` promises no tie order)."""
+    return torch.sort(r2, dim=-1, stable=True).indices[..., :k]
+
+
+def _neighbor_table(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``[B, N, 4k]``: ``x_i - x_j`` for each row's neighbours ``idx [B, N,
+    k]``, nearest first (reference flocking/flocking.py:20-25)."""
+    b, n, k = idx.shape
+    rows = torch.arange(b, device=x.device)[:, None, None]
+    return (x[:, :, None, :] - x[rows, idx]).reshape(b, n, 4 * k)
+
+
+class FlockingAbsoluteEnv(FlockingRelativeEnv):
+    """``Flocking-v0``: the observation is the state difference to each of
+    the ``n_neighbors`` (7) nearest agents by r^2, ``[B, N, 4k]`` (reference
+    flocking/flocking.py:20-25); the network is the relative env's."""
+
+    def _obs(self, state: FlockingState, params: FlockingParams):
+        x = state.x
+        _, adj, adj_mean, r2 = flocking_features(x, params.comm_radius2)
+        obs = _neighbor_table(x, _nearest(r2, params.n_neighbors))
+        return obs, (adj_mean if params.mean_pooling else adj)
+
+    def observation_space(self, params: FlockingParams):
+        return Box(-math.inf, math.inf, (params.n_agents, params.n_neighbors * 4))
+
+    def _fused_pass(self, x, params, centralized):
+        """The neighbour table shares the pass's r^2 with the expert sums, so
+        the fused rollout's ``values`` are this env's observation."""
+        channels = _pairwise_channels(x)
+        r2 = channels[4]
+        adj = radius_adjacency(r2, params.comm_radius2)
+        network = mean_pool_normalize(adj) if params.mean_pooling else adj
+        obs = _neighbor_table(x, _nearest(r2, params.n_neighbors))
+        return (obs, network,
+                *_expert_sums(x, channels, adj, params, centralized, masked=False))
+
+
+class FlockingLeaderEnv(FlockingRelativeEnv):
+    """``FlockingLeader-v0``: the first ``n_leaders`` agents ignore their
+    control input (reference flocking_leader.py:21-40).
+
+    The reference's quirks are kept: actions are NOT scaled by
+    ``action_scalar`` (:24), all leaders of a swarm share one uniform
+    velocity in both components (:38-39), and the reset returns the
+    observation from before that override (:36-40), as do ``mean_vel`` and
+    ``init_vel``.
+    """
+
+    def default_params(self) -> FlockingParams:
+        return FlockingParams(max_steps=200)
+
+    def _integration_mask(self, params: FlockingParams, x: torch.Tensor):
+        n = params.n_agents
+        return (torch.arange(n, device=x.device) >= params.n_leaders).to(x.dtype)
+
+    def _action_scale(self, params: FlockingParams):
+        return 1.0
+
+    def reset_env(self, generator: torch.Generator, params: FlockingParams, n_envs: int):
+        state, obs = super().reset_env(generator, params, n_envs)
+        u = torch.rand((n_envs, 1, 1), generator=generator, device=generator.device,
+                       dtype=state.x.dtype)
+        lead_v = -params.v_max + 2.0 * params.v_max * u
+        x = state.x.clone()  # init_vel stays a view of the drawn state
+        x[:, :params.n_leaders, 2:4] = lead_v
+        return dataclasses.replace(state, x=x), obs
+
+
+class FlockingObstacleEnv(FlockingRelativeEnv):
+    """``FlockingObstacle-v0``: the first ``n_obstacles`` agents are frozen
+    obstacles (reference flocking_obstacle.py:13-104).
+
+    Deterministic reset: the swarm on a 0.8-spaced grid moving at (0, -7),
+    the obstacles on a half-scale 2-wide grid 10 units below, at rest
+    (:58-73).  Obstacle velocity rows and columns are zeroed in the pairwise
+    differences (:80-81), actions are not scaled (:38), and ``mean_vel`` /
+    ``init_vel`` cover the other agents only.  ``r_max`` is 3 (:22), used
+    by rendering only.
+    """
+
+    def default_params(self) -> FlockingParams:
+        return FlockingParams(max_steps=200, r_max=3.0, auto_scale_r_max=False)
+
+    def _obstacle_mask(self, params: FlockingParams, x: torch.Tensor):
+        return torch.arange(params.n_agents, device=x.device) < params.n_obstacles
+
+    def _integration_mask(self, params: FlockingParams, x: torch.Tensor):
+        n = params.n_agents
+        return (torch.arange(n, device=x.device) >= params.n_obstacles).to(x.dtype)
+
+    def _action_scale(self, params: FlockingParams):
+        return 1.0
+
+    def reset_env(self, generator: torch.Generator, params: FlockingParams, n_envs: int):
+        """The same state for every swarm; ``generator`` only sets the device."""
+        n, n_obs = params.n_agents, params.n_obstacles
+        x = torch.zeros(n, 4)
+        x[:, 0:2] = torch.as_tensor(formations.grid(n), dtype=torch.float32)
+        x[:, 3] = -7.0
+        obs_pos = torch.as_tensor(formations.grid(n_obs, side=2), dtype=torch.float32) * 0.5
+        obs_pos[:, 1] += -10.0
+        x[:n_obs, 0:2] = obs_pos
+        x[:n_obs, 2:4] = 0.0
+        x = x.to(generator.device).expand(n_envs, n, 4).clone()
+        self.last_reset_tries = 0
+        state = FlockingState(
+            time=torch.zeros(n_envs, dtype=torch.int32, device=x.device),
+            x=x,
+            mean_vel=x[:, n_obs:, 2:4].mean(dim=-2),
+            init_vel=x[:, n_obs:, 2:4],
+        )
+        return state, self._obs(state, params)
+
+
+class FlockingStochasticEnv(FlockingRelativeEnv):
+    """``FlockingStochastic-v0``: a random dt ~ N(0.12, 0.018) a step, one per
+    swarm (reference flocking_stoch.py:14-45): the action is clipped to
+    +-``stoch_max_accel``, state and control are scaled by ``stoch_scale``
+    before the Euler step and unscaled after; the expert clips its output to
+    +-``stoch_max_accel``.
+    """
+
+    def default_params(self) -> FlockingParams:
+        return FlockingParams(max_steps=500)
+
+    @staticmethod
+    def _draw_dt(generator: torch.Generator, params: FlockingParams, like: torch.Tensor):
+        """``[B]`` dts: one ``randn(B)`` from ``generator``, nothing else."""
+        z = torch.randn((like.shape[0],), generator=generator, device=generator.device,
+                        dtype=like.dtype)
+        return params.dt_mean + params.dt_sigma * z
+
+    def step_env(self, generator, state: FlockingState, action, params: FlockingParams):
+        return self.step_with_dt(state, action, self._draw_dt(generator, params, state.x),
+                                 params)
+
+    def step_with_dt(self, state: FlockingState, action, dt, params: FlockingParams):
+        """A step with the given dt: a float or a ``[B]`` tensor."""
+        x = self._integrate_scaled(state.x, action, dt, params)
+        new_state = dataclasses.replace(state, x=x, time=state.time + 1)
+        obs = self._obs(new_state, params)
+        return new_state, obs, _instant_cost(x), new_state.time >= params.max_steps, {}
+
+    @staticmethod
+    def _integrate_scaled(x, action, dt, params: FlockingParams):
+        u = action.clamp(-params.stoch_max_accel, params.stoch_max_accel)
+        s = params.stoch_scale
+        return _integrate(x * s, u * s, dt) / s
+
+    def controller(self, state, params, generator=None, centralized=None):
+        u = turner_controller(state.x, params, centralized)
+        return u.clamp(-params.stoch_max_accel, params.stoch_max_accel)
+
+    def expert_rollout(self, state, params, n_steps, centralized=None, generator=None):
+        """The fused rollout with one ``[B]`` dt a step drawn from
+        ``generator`` (a fresh one seeded 0 on the state's device when
+        ``None``, as the JAX package defaults to ``key(0)``)."""
+        if generator is None:
+            generator = torch.Generator(device=state.x.device).manual_seed(0)
+        return super().expert_rollout(state, params, n_steps, centralized, generator)
+
+    def _rollout_action(self, controls, params):
+        u = controls.clamp(-10.0, 10.0) / params.action_scalar
+        return u.clamp(-params.stoch_max_accel, params.stoch_max_accel)
+
+    def _rollout_integrate(self, x, u, params, generator):
+        return self._integrate_scaled(x, u, self._draw_dt(generator, params, x), params)
+
+
+class FlockingTwoFlocksEnv(FlockingRelativeEnv):
+    """``FlockingTwoFlocks-v0``: positions on a grid of ``int(n/10)`` columns,
+    velocities ``-grid + bias`` with one bias ~ U(-v_bias/2, v_bias/2)^2 a
+    swarm (reference flocking_twoflocks.py:8-26)."""
+
+    def default_params(self) -> FlockingParams:
+        return FlockingParams(max_steps=500)
+
+    def reset_env(self, generator: torch.Generator, params: FlockingParams, n_envs: int):
+        n, dev = params.n_agents, generator.device
+        u = torch.rand((n_envs, 2), generator=generator, device=dev)
+        bias = -params.v_bias / 2.0 + params.v_bias * u
+        grids = torch.as_tensor(formations.grid(n, side=int(n / 10)), dtype=torch.float32,
+                                device=dev).expand(n_envs, n, 2)
+        self.last_reset_tries = 0
+        state = _state_from_x(torch.cat((grids, -grids + bias[:, None, :]), dim=-1))
+        return state, self._obs(state, params)
 
 
 class LargeFlockingEnv(FlockingRelativeEnv):

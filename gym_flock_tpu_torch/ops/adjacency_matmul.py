@@ -34,10 +34,17 @@ __all__ = [
     "adjacency_matmul",
     "khop_aggregate",
     "launch_grid",
+    "launches_for",
 ]
 
+FEATURES_A_LAUNCH = 8  # csrc/adj_matmul.cu's kFeat: one launch a chunk of 8 features
 launches = 0  # K2 kernel launches in this process; only _launch adds to it
 backward_launches = 0  # those of them made for a backward pass
+
+
+def launches_for(f: int) -> int:
+    """Kernel launches of one K2 or K4 call over ``f`` features."""
+    return -(-f // FEATURES_A_LAUNCH)
 
 
 def adjacency_matmul_block_reference(
@@ -142,8 +149,8 @@ def _launch(xr, xc, h, row_offset, col_offset, comm_radius2, backward):
             )
         if rc != 0:
             raise RuntimeError(f"K2 (adj_matmul) launch failed: CUDA error {rc}")
-        launches += 1
-        backward_launches += int(backward)
+        launches += launches_for(f)
+        backward_launches += launches_for(f) if backward else 0
     return out.to(h.dtype), deg
 
 

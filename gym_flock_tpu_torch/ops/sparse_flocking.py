@@ -537,8 +537,8 @@ def _launch_adj(xs, hs, table, comm_radius2, backward):
             )
         if rc != 0:
             raise RuntimeError(f"K4 (sparse_adj) launch failed: CUDA error {rc}")
-        adj_launches += 1
-        adj_backward_launches += int(backward)
+        adj_launches += k2.launches_for(f)
+        adj_backward_launches += k2.launches_for(f) if backward else 0
     return out.to(hs.dtype), deg
 
 

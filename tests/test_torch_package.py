@@ -13,7 +13,8 @@ _JAX_IMPORT = re.compile(
 
 def _port_files():
     return sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + [
-        "chip_smoke.py", "tools/train_quality_torch.py", "tools/profile_coverage_train.py"]
+        "chip_smoke.py", "tools/train_quality_torch.py", "tools/profile_coverage_train.py",
+        "tools/profile_families.py"]
 
 
 @pytest.mark.parametrize("rel", _port_files())
@@ -35,3 +36,19 @@ def test_kernel_sources_are_package_data():
     include = cfg["tool"]["setuptools"]["packages"]["find"]["include"]
     assert any(re.fullmatch(pat.replace("*", ".*"), "gym_flock_tpu_torch") for pat in include)
     assert "torch" in cfg["project"]["optional-dependencies"]
+
+
+AIRSIM_IDS = ("FlockingAirsimAccel-v0", "MappingAirsim-v0")
+
+
+def test_registry_holds_every_jax_id_but_the_airsim_ones():
+    """The port registers every id of the JAX package except the two that
+    need an AirSim client, each with the JAX package's
+    ``max_episode_steps``."""
+    import gym_flock_tpu as gft_jax
+    import gym_flock_tpu_torch as gft
+
+    want = {k: v.max_episode_steps for k, v in gft_jax.registry.items() if k not in AIRSIM_IDS}
+    got = {k: v.max_episode_steps for k, v in gft.registry.items()}
+    assert got == want
+    assert len(got) == 23 and not set(AIRSIM_IDS) & set(got)

@@ -381,7 +381,7 @@ def test_k4_matches_plain_on_the_card(cuda, name):
     before = sf.adj_launches
     got, deg = sf.sparse_adj_sorted(xs, hs, table, CR2)
     torch.cuda.synchronize()
-    assert sf.adj_launches == before + 1
+    assert sf.adj_launches == before + k2.launches_for(hs.shape[-1])  # F=13: two
     want, want_deg = sf.sparse_adj_sorted_reference(xs, hs, table, CR2)
     assert torch.equal(deg, want_deg)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

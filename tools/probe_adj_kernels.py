@@ -264,15 +264,15 @@ def previous_kernels(old):
     def k2_launch(xr, xc, h, row_offset, col_offset, comm_radius2, backward):
         out, deg = direct_k2(old, "gft_adj_matmul", xr, xc, h.to(torch.float32).contiguous(),
                              int(row_offset), int(col_offset), True, float(comm_radius2))
-        k2.launches += 1
-        k2.backward_launches += int(backward)
+        k2.launches += k2.launches_for(h.shape[-1])
+        k2.backward_launches += k2.launches_for(h.shape[-1]) if backward else 0
         return out.to(h.dtype), deg
 
     def k4_launch(xs, hs, table, comm_radius2, backward):
         out, deg = direct_k4(old, xs, hs.to(torch.float32).contiguous(), table,
                              float(comm_radius2))
-        sf.adj_launches += 1
-        sf.adj_backward_launches += int(backward)
+        sf.adj_launches += k2.launches_for(hs.shape[-1])
+        sf.adj_backward_launches += k2.launches_for(hs.shape[-1]) if backward else 0
         return out.to(hs.dtype), deg
 
     saved = k2._launch, sf._launch_adj
