@@ -191,11 +191,15 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -1898,7 +1902,7 @@ LQR_STEP_TOL = 1e-5  # max |k - p| / (1 + |p|) of an LQR step or expert action
 
 def host_head(obj, k: int | None = CPU_ENVS):
     """The first ``k`` envs (all where ``k`` is None) of a tensor, or of a
-    tuple or dataclass of them, nested, on the host."""
+    tuple, dict or dataclass of them, nested, on the host."""
     import dataclasses
 
     import torch
@@ -1907,6 +1911,8 @@ def host_head(obj, k: int | None = CPU_ENVS):
         return (obj if k is None else obj[:k]).cpu()
     if isinstance(obj, tuple):
         return tuple(host_head(o, k) for o in obj)
+    if isinstance(obj, dict):
+        return {key: host_head(v, k) for key, v in obj.items()}
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{f.name: host_head(getattr(obj, f.name), k)
                                            for f in dataclasses.fields(obj)})
@@ -2351,6 +2357,592 @@ def phase_flocking_multi(device: str, n_envs: int, n_steps: int) -> dict:
     }
 
 
+# --------------------------------------------------------------------------
+# Phases 26-28: the coverage flag modes and the bank's disk format, the gym
+# facades, the AirSim bridges
+# --------------------------------------------------------------------------
+
+FLAG_STEPS = 16
+FLAG_ENVS = 1024
+FEAT_ATOL = 1e-6  # an edge feature of the card's first step against the host's
+ALL_FLAGS = dict(comm_edges=True, pos_delta=True, last_edge_feature=True, revisit_nodes=True)
+LEGACY_STEPS = 1500  # controller()/step() pairs of bench metrics 9-11's loop
+# the reference's single-stream CPU rates that bench.py:37-42 quotes (BASELINE.md)
+LEGACY_BASELINES = {"FlockingRelative-v0": 835.0, "Coverage-v0": 2381.0,
+                    "CoverageARL-v0": 176.0}
+BRIDGE_STEPS = 20
+BRIDGE_U_ATOL = 1e-5  # the card's Turner action against the host's
+
+
+def coverage_obs_on_host(what: str, got: dict, want: dict) -> float:
+    """The card's coverage observation against the host's: indices, nodes
+    and the step exactly, edge features within FEAT_ATOL; returns the
+    largest edge error."""
+    for k in ("senders", "receivers", "nodes", "step"):
+        hold(f"{what} {k}", got[k], want[k], 0, "exact")
+    return hold(f"{what} edges", got["edges"], want["edges"], FEAT_ATOL, "abs")
+
+
+def drive_flag_env(device: str, env_id: str, flags: dict, n_envs: int, n_steps: int) -> dict:
+    """One flag-mode env: reset and ``n_steps`` greedy expert steps on the
+    card (K5 exactly once a step), the first step repeated on the host with
+    the plain K5 from the same state, the same random actions and (under
+    ``revisit_nodes``) the card's flip draw replayed, not drawn; every
+    step's revisit flips replayed and held to the state's changes."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs import coverage as cov
+
+    t0 = time.perf_counter()
+    env, params = gft.make(env_id, device=device, real_map=True, **flags)
+    _sync()
+    make_s = time.perf_counter() - t0
+    b, r, t = n_envs, params.n_robots, params.max_targets
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    state0, _ = env.reset_env(gen, params, b)
+    _sync()
+    reset_counts()
+    state = state0
+    g_ctrl, g_step, visited_before, visited_after, locs, us = [], [], [], [], [], []
+    obs1 = None
+    t1 = time.perf_counter()
+    for _ in range(n_steps):
+        g_ctrl.append(gen.get_state())
+        u = env.controller(state, params, gen)
+        g_step.append(gen.get_state())
+        visited_before.append(state.visited)
+        state, obs, reward, done, _ = env.step_env(gen, state, u, params)
+        visited_after.append(state.visited)
+        locs.append(state.robot_loc)
+        us.append(u)
+        if obs1 is None:
+            obs1 = obs
+    _sync()
+    steps_s = time.perf_counter() - t1
+    launches = check_k5_count(f"{env_id} flag modes", n_steps)
+    if launch_total() != launches:
+        raise AssertionError(f"{env_id}: another kernel launched ({launch_total()} in all)")
+    check_all_finite(env_id, *obs1.values(), state.visited, state.episode_reward)
+    e = params.max_edges
+    if tuple(obs1["edges"].shape) != (b, e, params.n_edge_feat):
+        raise AssertionError(f"{env_id}: edges of shape {tuple(obs1['edges'].shape)}")
+
+    # the first step on the host, first CPU_ENVS envs: the plain K5 (CPU
+    # tensors), the card's random draws replayed
+    k = CPU_ENVS
+    hp = host_head(params, None)
+    h0 = host_head(state0, k)
+    replay = torch.Generator(device=device)
+    replay.set_state(g_ctrl[0])
+    rand_u = torch.randint(0, params.n_actions, (b, r), generator=replay, device=device,
+                           dtype=torch.int32)
+    u_host = env.controller(h0, hp, rand_u=rand_u[:k].cpu())
+    hold(f"{env_id} first actions", us[0][:k], u_host, 0, "exact")
+    flip = None
+    if params.revisit_nodes:
+        replay.set_state(g_step[0])
+        flip = cov.revisit_flips(replay, b, t)[:k].cpu()
+    h1, obs_h, reward_h, _, _ = env.step_env(None, h0, u_host, hp, flip=flip)
+    edge_err = coverage_obs_on_host(f"{env_id} first step", host_head(obs1, k), obs_h)
+    hold(f"{env_id} first visited", visited_after[0][:k], h1.visited, 0, "exact")
+
+    out = {"B": b, "R": r, "T": t, "E": e, "n_edge_feat": params.n_edge_feat,
+           "flags": sorted(f for f, on in flags.items() if on), "k5_launches": launches,
+           "make_seconds": make_s, "ms_a_step": steps_s * 1e3 / n_steps,
+           "env_steps_per_s": b * n_steps / steps_s, "first_step_edge_err": edge_err,
+           "mean_reward": float(state.episode_reward.mean()) / n_steps}
+    if params.comm_edges:
+        s, rc = obs1["senders"], obs1["receivers"]
+        comm = ((s >= 0) & (s < r) & (rc >= 0) & (rc < r)).sum(1)
+        out["comm_edges_a_step"] = [int(comm.min()), int(comm.max())]
+    if params.revisit_nodes:
+        mask = params.bank["target_mask"][state0.graph.long()]
+        n_flips = n_reverted = 0
+        for step in range(n_steps):
+            replay.set_state(g_step[step])
+            flip = cov.revisit_flips(replay, b, t)
+            want = torch.where(flip & mask, 0.0, visited_before[step]).scatter(
+                1, locs[step].long(), 1.0)
+            hold(f"revisit step {step}", visited_after[step], want, 0, "exact")
+            reverted = (visited_before[step] == 1) & (visited_after[step] == 0)
+            if bool((reverted & ~(flip & mask)).any()):
+                raise AssertionError(f"step {step}: a target reverted off mask & flip")
+            n_flips += int(flip.sum())
+            n_reverted += int(reverted.sum())
+        n = b * t * n_steps
+        p = cov.REVISIT_P
+        sigma = math.sqrt(n * p * (1 - p))
+        if not abs(n_flips - n * p) < 5 * sigma:
+            raise AssertionError(f"{n_flips} flips in {n} draws: rate {n_flips / n} not "
+                                 f"{p} within 5 sigma")
+        out.update(flip_draws=n, flips=n_flips, flip_rate=n_flips / n,
+                   flip_sigmas=(n_flips - n * p) / sigma, reverted=n_reverted)
+    return out
+
+
+def make_building(device: str, env_id: str, **kwargs):
+    """``make(env_id)`` when its bank is not cached: ``(env, params, build
+    seconds, seconds of the bank's write to the disk cache)``, the build's
+    time being the ``make``'s without the write."""
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs.coverage import last_bank_timing
+
+    t0 = time.perf_counter()
+    env, params = gft.make(env_id, device=device, **kwargs)
+    _sync()
+    make_s = time.perf_counter() - t0
+    if last_bank_timing.get("source") != "build":
+        raise AssertionError(f"{env_id}'s bank was not built: {last_bank_timing}")
+    write_s = last_bank_timing["write_seconds"]
+    return env, params, make_s - write_s, write_s
+
+
+def phase_flag_modes(device: str, x_bank, x_build_s: float, x_write_s: float) -> dict:
+    """Phase 26: CoverageARL-v0 with all four flags and ExploreEnv-v0
+    (hide_nodes) with comm_edges, pos_delta and last_edge_feature on the
+    real map; then phase 6's ExploreFull bank saved to a temporary
+    directory and loaded back onto the card (held equal key by key), and
+    the disk cache's read of the same bank timed against its build."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs import coverage as cov
+    from gym_flock_tpu_torch.envs import coverage_graph as cg
+
+    out = {
+        "CoverageARL-v0": drive_flag_env(device, "CoverageARL-v0", ALL_FLAGS, FLAG_ENVS,
+                                         FLAG_STEPS),
+        "ExploreEnv-v0": drive_flag_env(
+            device, "ExploreEnv-v0", dict(comm_edges=True, pos_delta=True,
+                                          last_edge_feature=True), FLAG_ENVS, FLAG_STEPS),
+    }
+    out["k5_launches"] = sum(v["k5_launches"] for v in out.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "explore_full.npz")
+        t0 = time.perf_counter()
+        cg.save_graph_bank(path, x_bank)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = cg.load_graph_bank(path, device=device)
+        _sync()
+        load_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+    if set(loaded) != set(x_bank):
+        raise AssertionError(f"loaded keys {sorted(set(loaded) ^ set(x_bank))} differ")
+    for key, v in x_bank.items():
+        if loaded[key].dtype != v.dtype or not torch.equal(loaded[key], v):
+            raise AssertionError(f"loaded bank differs at {key}")
+    # the disk cache, as a second process finds it: the memo emptied
+    cov._bank_cache.clear()
+    t0 = time.perf_counter()
+    _, again = gft.make("ExploreFullEnv-v0", device=device, real_map=True)
+    _sync()
+    cache_s = time.perf_counter() - t0
+    for key, v in x_bank.items():
+        if not torch.equal(again.bank[key], v):
+            raise AssertionError(f"the disk cache's bank differs at {key}")
+    out["explore_full_bank"] = {
+        "keys": len(x_bank), "build_seconds": x_build_s,
+        "cache_write_seconds": x_write_s, "save_seconds": save_s,
+        "load_seconds": load_s, "file_MB": size / 1e6,
+        "make_from_disk_cache_seconds": cache_s, "cache_dir": str(cov.bank_cache_dir())}
+    return out
+
+
+def first_step_equal(what: str, facade_step, env, params, state, gen, action, batched: bool):
+    """``facade_step(action)``, its observation held to ``step_env`` run on
+    the card from the same state and generator state (exactly: the same
+    operations on the same inputs); returns the facade's result."""
+    import torch
+
+    from gym_flock_tpu_torch.compat.gym_api import fetch
+
+    g0 = gen.get_state()
+    result = facade_step(action)
+    replay = torch.Generator(device=gen.device)
+    replay.set_state(g0)
+    a = torch.as_tensor(np.asarray(action)).to(device=gen.device,
+                                               dtype=env.action_space(params).dtype)
+    _, want, _, _, _ = env.step_env(replay, state, a if batched else a[None], params)
+    want, got = fetch(want), result[0]
+    keys = list(want) if isinstance(want, dict) else range(len(want))
+    for k in keys:
+        if not np.array_equal(np.asarray(got[k]).reshape(want[k].shape), want[k]):
+            raise AssertionError(f"{what}: the first step's obs[{k!r}] differs from step_env's")
+    return result
+
+
+def legacy_loop(device: str, env_id: str, n_steps: int, **kwargs) -> dict:
+    """Bench metrics 9-11's loop: ``u = env.controller(); env.step(u)``
+    ``n_steps`` times on a ``make_legacy`` env (coverage ids greedy and
+    wrapped in ``FlattenDictWrapper``, as reference test.py:33), resetting
+    where an episode ends.  K1 must launch once per reset draw and K5 once
+    per greedy controller call."""
+    from gym_flock_tpu_torch.compat import FlattenDictWrapper, make_legacy
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import rowmin as k5
+
+    legacy = make_legacy(env_id, device=device, **kwargs)
+    coverage = env_id.startswith("Coverage")
+    env = FlattenDictWrapper(legacy) if coverage else legacy
+    legacy.seed(SEED)
+    _sync()
+    reset_counts()
+    tries = resets = 0
+    reset_xs = []
+
+    def reset():
+        nonlocal tries, resets
+        obs = env.reset()
+        resets += 1
+        tries += getattr(legacy.env, "last_reset_tries", 0)
+        if not coverage:
+            reset_xs.append(legacy.state.x)
+        return obs
+
+    t0 = time.perf_counter()
+    reset()
+    reset_s = time.perf_counter() - t0
+    # the first pair, held to the env's functions from the same state
+    state, gen = legacy.state, legacy._gen
+    u = legacy.controller(greedy=True) if coverage else legacy.controller()
+    first_step_equal(env_id, legacy.step, legacy.env, legacy.params, state, gen, u,
+                     batched=False)
+    steps, rewards = 1, 0.0
+    t1 = time.perf_counter()
+    while steps < n_steps:
+        u = legacy.controller(greedy=True) if coverage else legacy.controller()
+        _, r, done, _ = env.step(u)
+        rewards += r
+        steps += 1
+        if done:
+            reset()
+    _sync()
+    loop_s = time.perf_counter() - t1
+    k1_launches, k5_launches = k1.launches, k5.launches
+    controller_calls = n_steps if coverage else 0
+    if k1_launches != tries or k5_launches != controller_calls:
+        raise AssertionError(f"{env_id} legacy: K1 {k1_launches} for {tries} reset draws, "
+                             f"K5 {k5_launches} for {controller_calls} greedy calls")
+    if not math.isfinite(rewards):
+        raise AssertionError(f"{env_id} legacy: non-finite rewards")
+    rate = (n_steps - 1) / loop_s
+    out = {}
+    if not coverage:
+        # K1 at this loop's own shape (B=1, N=100) on every accepted reset
+        # draw, after the counts were read
+        p = legacy.params
+        err = {"rel": 0.0, "ulp9": 0, "abs": 0.0}
+        for x in reset_xs:
+            e = k1_reset_check(x, p.comm_radius, p.comm_radius2)
+            err = {k: max(v, e[k]) for k, v in err.items()}
+        out = {"k1_grid_b1": k1.launch_grid(1, p.n_agents, p.n_agents),
+               "k1_checked_resets": len(reset_xs), "k1_vs_plain": err}
+    return out | {"pairs": n_steps, "resets": resets, "reset_draws": tries,
+            "k1_launches": k1_launches, "k5_launches": k5_launches,
+            "first_reset_ms": reset_s * 1e3, "ms_a_pair": loop_s * 1e3 / (n_steps - 1),
+            "steps_per_s": rate, "reference_cpu_steps_per_s": LEGACY_BASELINES[env_id],
+            "vs_reference": rate / LEGACY_BASELINES[env_id], "reward_sum": rewards}
+
+
+def gymnasium_single(device: str) -> dict:
+    """``make_gymnasium("FlockingRelative-v0")``: the time-driven family's
+    done is truncation at the env's own limit and at the registration's,
+    never terminal, as ``_done_semantics`` says."""
+    from gym_flock_tpu_torch.compat import make_gymnasium
+    from gym_flock_tpu_torch.compat.gymnasium_api import _done_semantics
+
+    if _done_semantics("FlockingRelative-v0") != "time":
+        raise AssertionError("FlockingRelative-v0 is not time-driven")
+    out = {}
+    for name, kw, limit in (("env_limit", dict(max_steps=5, max_episode_steps=1000), 5),
+                            ("registration_limit", dict(max_episode_steps=7), 7)):
+        env = make_gymnasium("FlockingRelative-v0", device=device, **kw)
+        obs, _ = env.reset(seed=SEED)
+        legacy = env.unwrapped
+        flags = []
+        first = True
+        t0 = time.perf_counter()
+        for _ in range(limit):
+            u = env.controller()
+            if first:
+                step = first_step_equal("gymnasium", env.step, legacy.env, legacy.params,
+                                        legacy.state, legacy._gen, u, batched=False)
+                flags.append(step[2:4])
+                first = False
+            else:
+                flags.append(env.step(u)[2:4])
+        _sync()
+        seconds = time.perf_counter() - t0
+        want = [(False, False)] * (limit - 1) + [(False, True)]
+        if flags != want:
+            raise AssertionError(f"gymnasium {name}: (terminated, truncated) {flags}")
+        out[name] = {"steps": limit, "ms_a_pair": seconds * 1e3 / limit}
+    return out
+
+
+def vector_flocking(device: str, n_envs: int, n_steps: int, limit: int) -> dict:
+    """``make_gymnasium_vector("FlockingRelative-v0")`` with a time limit:
+    every env truncates at once, so the batch is reset whole (K1 once a
+    draw of each reset) and every row carries its final observation."""
+    from gym_flock_tpu_torch.compat import make_gymnasium_vector
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+    venv = make_gymnasium_vector("FlockingRelative-v0", num_envs=n_envs, device=device,
+                                 max_episode_steps=limit)
+    env = venv._env
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    venv.reset(seed=SEED)
+    tries, resets, autoresets = env.last_reset_tries, 1, 0
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    step_ms, autoreset_ms = [], []
+    for t in range(n_steps):
+        u = venv.controller()
+        t1 = time.perf_counter()
+        if t == 0:
+            obs, rew, term, trunc, infos = first_step_equal(
+                "vector flocking", venv.step, env, venv.params, venv.state, venv._gen, u,
+                batched=True)
+        else:
+            obs, rew, term, trunc, infos = venv.step(u)
+        ms = (time.perf_counter() - t1) * 1e3
+        if (term | trunc).any():
+            autoresets += 1
+            resets += 1
+            tries += env.last_reset_tries
+            autoreset_ms.append(ms)
+            if term.any() or not trunc.all() or not infos["_final_observation"].all():
+                raise AssertionError(f"step {t}: the time limit is truncation of every env")
+            if infos["final_observation"][0][0].shape != (100, 6):
+                raise AssertionError("final observation of the wrong shape")
+        else:
+            step_ms.append(ms)
+        if not np.isfinite(rew).all() or obs[0].shape != (n_envs, 100, 6):
+            raise AssertionError(f"step {t}: rewards or observation wrong")
+    if autoresets != n_steps // limit or k1.launches != tries:
+        raise AssertionError(f"{autoresets} autoresets, K1 {k1.launches} for {tries} draws")
+    return {"B": n_envs, "steps": n_steps, "limit": limit, "resets": resets,
+            "reset_draws": tries, "k1_launches": k1.launches, "reset_ms": reset_ms,
+            "ms_a_step": statistics.median(step_ms),
+            "ms_an_autoreset_step": autoreset_ms}
+
+
+def vector_coverage(device: str, n_envs: int, n_steps: int) -> dict:
+    """``make_gymnasium_vector("Coverage-v0")`` across the 75-step episode
+    end, ``controller()`` on K5 once a call: terminated where the env is
+    done (all at step 74, from the reset's counter of 1), truncated never
+    (the registration's limit is 75 elapsed steps)."""
+    from gym_flock_tpu_torch.compat import make_gymnasium_vector
+    from gym_flock_tpu_torch.ops import rowmin as k5
+
+    venv = make_gymnasium_vector("Coverage-v0", num_envs=n_envs, device=device)
+    env = venv._env
+    venv.reset(seed=SEED)
+    _sync()
+    reset_counts()
+    step_ms, finished_at = [], []
+    t0 = time.perf_counter()
+    for t in range(n_steps):
+        u = venv.controller()
+        t1 = time.perf_counter()
+        if t == 0:
+            obs, rew, term, trunc, infos = first_step_equal(
+                "vector coverage", venv.step, env, venv.params, venv.state, venv._gen, u,
+                batched=True)
+        else:
+            obs, rew, term, trunc, infos = venv.step(u)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        mask = term | trunc
+        if mask.any():
+            finished_at.append((t, int(term.sum()), int(trunc.sum())))
+            if not np.array_equal(infos["_final_observation"], mask):
+                raise AssertionError(f"step {t}: final-observation mask is not term | trunc")
+            i = int(np.nonzero(mask)[0][0])
+            if float(obs["step"][i, 0, 0]) != 0.0:
+                raise AssertionError(f"step {t}: a finished row is not a fresh episode")
+        if not np.isfinite(rew).all():
+            raise AssertionError(f"step {t}: non-finite rewards")
+    _sync()
+    seconds = time.perf_counter() - t0
+    if k5.launches != n_steps:
+        raise AssertionError(f"vector coverage: K5 {k5.launches} launches for {n_steps} calls")
+    if not finished_at or any(tr for _, _, tr in finished_at):
+        raise AssertionError(f"vector coverage: episode ends {finished_at}")
+    return {"B": n_envs, "steps": n_steps, "k5_launches": k5.launches,
+            "episode_ends": finished_at, "ms_a_step": statistics.median(step_ms),
+            "max_step_ms": max(step_ms),
+            "env_steps_per_s": n_envs * n_steps / seconds}
+
+
+def phase_facades(device: str) -> dict:
+    """Phase 27: the gym facades on the card."""
+    out = {"legacy": {
+        "FlockingRelative-v0": legacy_loop(device, "FlockingRelative-v0", LEGACY_STEPS),
+        "Coverage-v0": legacy_loop(device, "Coverage-v0", LEGACY_STEPS),
+        "CoverageARL-v0": legacy_loop(device, "CoverageARL-v0", LEGACY_STEPS, real_map=True),
+    }}
+    out["gymnasium"] = gymnasium_single(device)
+    out["vector_flocking"] = vector_flocking(device, n_envs=8192, n_steps=16, limit=8)
+    out["vector_coverage"] = vector_coverage(device, n_envs=8192, n_steps=80)
+    legacy = out["legacy"].values()
+    out["k1_launches"] = (sum(v["k1_launches"] for v in legacy)
+                          + out["vector_flocking"]["k1_launches"])
+    out["k5_launches"] = (sum(v["k5_launches"] for v in legacy)
+                          + out["vector_coverage"]["k5_launches"])
+    return out
+
+
+class _Future:
+    def join(self):
+        pass
+
+
+class _Vec:
+    def __init__(self, x=0.0, y=0.0, z=0.0):
+        self.x_val, self.y_val, self.z_val = x, y, z
+
+
+class FakeAirsimClient:
+    """An AirSim MultirotorClient stand-in that records every command:
+    velocity commands integrate, position commands teleport, tilt commands
+    become an acceleration; each drone holds its own yaw."""
+
+    def __init__(self, names):
+        self.pos = {n: np.zeros(2) for n in names}
+        self.vel = {n: np.zeros(2) for n in names}
+        self.yaw = {n: 0.3 * i for i, n in enumerate(names)}
+        self.calls = []
+
+    def reset(self):
+        self.calls.append(("reset",))
+
+    def enableApiControl(self, flag, name):
+        self.calls.append(("api", name))
+
+    def armDisarm(self, flag, name):
+        self.calls.append(("arm", name))
+
+    def takeoffAsync(self, vehicle_name):
+        self.calls.append(("takeoff", vehicle_name))
+        return _Future()
+
+    def moveToPositionAsync(self, x, y, z, speed, vehicle_name):
+        self.calls.append(("position", vehicle_name, x, y, z, speed))
+        self.pos[vehicle_name] = np.array([x, y])
+        return _Future()
+
+    def moveByVelocityZAsync(self, vx, vy, z, duration, vehicle_name):
+        self.calls.append(("velocity", vehicle_name, vx, vy, z, duration))
+        self.vel[vehicle_name] = np.array([vx, vy])
+        self.pos[vehicle_name] = self.pos[vehicle_name] + duration * self.vel[vehicle_name]
+        return _Future()
+
+    def moveByAngleZAsync(self, pitch, roll, z, yaw, duration, vehicle_name):
+        self.calls.append(("angle", vehicle_name, pitch, roll, z, yaw, duration))
+        accel = 9.8 * np.array([-pitch, roll])
+        self.vel[vehicle_name] = self.vel[vehicle_name] + accel * duration * 10
+        self.pos[vehicle_name] = self.pos[vehicle_name] + self.vel[vehicle_name] * duration * 10
+        return _Future()
+
+    def getMultirotorState(self, vehicle_name):
+        class S:
+            pass
+
+        s = S()
+        s.kinematics_estimated = S()
+        s.kinematics_estimated.position = _Vec(*self.pos[vehicle_name], 0.0)
+        s.kinematics_estimated.linear_velocity = _Vec(*self.vel[vehicle_name], 0.0)
+        yaw = self.yaw[vehicle_name]
+        q = S()
+        q.w_val, q.x_val, q.y_val, q.z_val = math.cos(yaw / 2), 0.0, 0.0, math.sin(yaw / 2)
+        s.kinematics_estimated.orientation = q
+        return s
+
+
+def same_calls(what: str, got, want) -> int:
+    """The card bridge's client calls against the host bridge's, exactly."""
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got + [None], want + [None])) if g != w)
+        raise AssertionError(f"{what}: call {bad} differs: {got[bad:bad + 1]} against "
+                             f"{want[bad:bad + 1]}")
+    return len(got)
+
+
+def phase_bridges(device: str, n_steps: int) -> dict:
+    """Phase 28: each AirSim bridge on the card and on the host, each with
+    its own fake client, ``n_steps`` expert steps.  Both are stepped with
+    the card's action, so the clients see the same physics: the commands
+    must be equal call for call, and the host's expert within
+    BRIDGE_U_ATOL (flocking) or exactly (coverage) of the card's."""
+    import torch
+
+    from gym_flock_tpu_torch.bridges import AirsimCoverageBridge, AirsimFlockingBridge
+    from gym_flock_tpu_torch.compat import make_legacy
+
+    names = [f"Drone{i}" for i in range(10)]
+    home = np.stack([np.arange(10) * 2.0, np.zeros(10), np.zeros(10)], axis=1)
+    clients = {d: FakeAirsimClient(names) for d in (device, "cpu")}
+    bridges = {d: AirsimFlockingBridge(clients[d], names=names, home=home, device=d)
+               for d in (device, "cpu")}
+    for d, bridge in bridges.items():
+        bridge.reset(np.random.RandomState(SEED))
+    u_err = net_err = 0.0
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        u = bridges[device].controller()
+        u_err = max(u_err, hold("bridge Turner action", torch.from_numpy(u),
+                                torch.from_numpy(bridges["cpu"].controller()),
+                                BRIDGE_U_ATOL, "abs"))
+        (_, net), r, _, _ = bridges[device].step(u)
+        (_, net_h), r_h, _, _ = bridges["cpu"].step(u)
+        net_err = max(net_err, hold("bridge network", torch.from_numpy(net),
+                                    torch.from_numpy(net_h), NETWORK_ATOL, "abs"))
+        if r != r_h:
+            raise AssertionError("bridge rewards differ")
+    flock_s = time.perf_counter() - t0
+    flock_calls = same_calls("flocking bridge", clients[device].calls, clients["cpu"].calls)
+
+    names6 = names[:6]
+    home6 = home[:6]
+    legacies = {d: make_legacy("Coverage-v0", device=d) for d in (device, "cpu")}
+    clients = {d: FakeAirsimClient(names6) for d in (device, "cpu")}
+    cov = {d: AirsimCoverageBridge(clients[d], legacies[d], names=names6, home=home6)
+           for d in (device, "cpu")}
+    legacies[device].seed(SEED)
+    cov[device].reset()
+    # the host bridge takes the card's reset state (the two generators'
+    # streams differ) and flies to its start nodes as reset() does, so the
+    # two clients see the same calls
+    host = legacies["cpu"]
+    host.reset()
+    host._state = host_head(legacies[device].state, None)
+    hb = cov["cpu"]
+    hb.ops.client.reset()
+    hb.ops.setup_drones()
+    pos, _, cur = hb._graph()
+    hb.ops.send_locations(pos[cur], hb.z)
+    hb._sync()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        a = legacies[device].controller(greedy=True)
+        if not np.array_equal(a, host.controller(greedy=True)):
+            raise AssertionError("coverage bridge: the host's greedy action differs")
+        obs, r, d, _ = cov[device].step(a)
+        obs_h, r_h, d_h, _ = cov["cpu"].step(a)
+        if (r, d) != (r_h, d_h) or any(not np.array_equal(obs[k], obs_h[k]) for k in obs):
+            raise AssertionError("coverage bridge: the card's step differs from the host's")
+    cov_s = time.perf_counter() - t0
+    cov_calls = same_calls("coverage bridge", clients[device].calls, clients["cpu"].calls)
+    return {"flocking": {"steps": n_steps, "client_calls": flock_calls,
+                         "turner_err": u_err, "network_err": net_err,
+                         "ms_a_step": flock_s * 1e3 / n_steps},
+            "coverage": {"steps": n_steps, "client_calls": cov_calls,
+                         "ms_a_step": cov_s * 1e3 / n_steps}}
+
+
 def main() -> int:
     import torch
 
@@ -2359,7 +2951,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from gym_flock_tpu_torch.envs.coverage import CACHE_ENV
     from gym_flock_tpu_torch.ops import _build
+
+    # the run's own bank cache: phase 6 builds its banks (and writes them
+    # there), phase 26 reads the ExploreFull bank back
+    bank_cache = tempfile.TemporaryDirectory(prefix="gft_bank_cache_")
+    os.environ[CACHE_ENV] = bank_cache.name
 
     # 1. device
     smi = subprocess.run(
@@ -2400,22 +2998,16 @@ def main() -> int:
     print("phase 5 FlockingRelative-v0 B=8192 N=100 8 steps: " + json.dumps(rel))
 
     # 6. banks and K5 against its plain version
-    import gym_flock_tpu_torch as gft
-
-    t0 = time.perf_counter()
-    xenv, xparams = gft.make("ExploreFullEnv-v0", device=device, real_map=True)
-    _sync()
-    x_build_s = time.perf_counter() - t0
+    xenv, xparams, x_build_s, x_write_s = make_building(device, "ExploreFullEnv-v0",
+                                                        real_map=True)
     t_real = xparams.bank["target_mask"].shape[1]
     if t_real < 4096:
         raise AssertionError(f"ExploreFullEnv-v0 has T={t_real}: not the real map")
-    t0 = time.perf_counter()
-    cenv, cparams = gft.make("Coverage-v0", device=device)
-    _sync()
-    c_build_s = time.perf_counter() - t0
+    cenv, cparams, c_build_s, c_write_s = make_building(device, "Coverage-v0")
     print(f"phase 6 banks: ExploreFullEnv-v0 T={t_real} R={xparams.n_robots} built in "
-          f"{x_build_s:.2f} s; Coverage-v0 G={cparams.bank['target_mask'].shape[0]} "
-          f"T={cparams.max_targets} built in {c_build_s:.2f} s")
+          f"{x_build_s:.2f} s (then {x_write_s:.2f} s to write it to the disk cache); "
+          f"Coverage-v0 G={cparams.bank['target_mask'].shape[0]} T={cparams.max_targets} "
+          f"built in {c_build_s:.2f} s (then {c_write_s:.2f} s)")
     k5r = phase_rowmin_check(device, (xparams.bank, cparams.bank))
     _sync()
     print("phase 6 K5 vs plain: " + json.dumps(k5r))
@@ -2532,6 +3124,24 @@ def main() -> int:
     _sync()
     print("phase 25 FlockingMulti-v0 B=4096 N=80 16 steps: " + json.dumps(t25))
 
+    # 26. the coverage flag modes, and the bank's disk format and cache
+    t26 = phase_flag_modes(device, xparams.bank, x_build_s, x_write_s)
+    _sync()
+    print(f"phase 26 coverage flag modes B={FLAG_ENVS} {FLAG_STEPS} steps, ExploreFull bank "
+          "save/load: " + json.dumps(t26))
+
+    # 27. the gym facades
+    t27 = phase_facades(device)
+    _sync()
+    print(f"phase 27 facades: make_legacy {LEGACY_STEPS} controller/step pairs, "
+          "make_gymnasium, make_gymnasium_vector: " + json.dumps(t27))
+
+    # 28. the AirSim bridges
+    t28 = phase_bridges(device, BRIDGE_STEPS)
+    _sync()
+    print(f"phase 28 AirSim bridges {BRIDGE_STEPS} steps, card against host: "
+          + json.dumps(t28))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
@@ -2543,10 +3153,12 @@ def main() -> int:
         "replaces": "gym_flock_tpu/ops/pallas_flocking.py:268",
         "launches": (large["launches"] + rel["launches"] + sr["k1_launches"]
                      + t14["k1_collect_launches"] + t15["k1_launches"] + t16["k1_launches"]
-                     + t20["k1_launches"] + t21["k1_launches"] + t25["k1_launches"]),
+                     + t20["k1_launches"] + t21["k1_launches"] + t25["k1_launches"]
+                     + t27["k1_launches"]),
         "max_abs_err": max(k["worst"]["abs"], k3["k1_dense_a"]["abs"],
                            sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"],
-                           t21["k1_vs_plain"]["abs"], t25["k1_vs_plain"]["abs"]),
+                           t21["k1_vs_plain"]["abs"], t25["k1_vs_plain"]["abs"],
+                           t27["legacy"]["FlockingRelative-v0"]["k1_vs_plain"]["abs"]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
@@ -2559,7 +3171,8 @@ def main() -> int:
         "source": "gym_flock_tpu_torch/csrc/rowmin.cu",
         "replaces": "gym_flock_tpu/ops/rowmin.py:72",
         "launches": (xf["launches"] + cv["launches"] + t17["k5_launches"]
-                     + t17["eval_k5_launches"] + t18["k5_launches"] + t19["k5_launches"]),
+                     + t17["eval_k5_launches"] + t18["k5_launches"] + t19["k5_launches"]
+                     + t26["k5_launches"] + t27["k5_launches"]),
         "max_abs_err": k5r["max_abs_err"],
         "ms": k5_big["ms"],
         "plain_ms": k5_big["plain_ms"],

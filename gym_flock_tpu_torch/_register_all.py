@@ -1,6 +1,5 @@
-"""Populate the registry with the env ids ported so far, with their
-``max_episode_steps`` as in ``gym_flock_tpu/_register_all.py``: every id but
-the two AirSim ones."""
+"""Populate the registry with every env id of ``gym_flock_tpu/_register_all.py``,
+each with its ``max_episode_steps``."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,3 +65,40 @@ register("MappingVel-v0", mapping_factory(MappingVelEnv), 1000)
 register("MappingDisc-v0", mapping_factory(MappingDiscEnv), 1000)
 register("MappingLocal-v0", mapping_factory(MappingLocalEnv), 1000)
 register("FlockingMulti-v0", _flocking_factory(FlockingMultiEnv), 1000)
+
+
+def _airsim_factory(env_id):
+    def factory(client=None, settings_path=None, names=None, home=None, device="cuda",
+                **kwargs):
+        """AirSim-bridged envs need a simulator client (the reference gates
+        these ids on ``import airsim``, gym_flock/__init__.py:97-112; here
+        the client is injected: see ``gym_flock_tpu_torch.bridges``)."""
+        if client is None:
+            raise ValueError(
+                f"{env_id} requires an AirSim-compatible client: "
+                f"make('{env_id}', client=..., settings_path=... | names=..., home=...). "
+                "See gym_flock_tpu_torch.bridges.airsim_bridge."
+            )
+        from gym_flock_tpu_torch.bridges.airsim_bridge import (
+            AirsimCoverageBridge,
+            AirsimFlockingBridge,
+        )
+
+        if env_id == "FlockingAirsimAccel-v0":
+            bridge = AirsimFlockingBridge(client, settings_path=settings_path, names=names,
+                                          home=home, device=device)
+            return bridge, bridge.params
+        # MappingAirsim-v0: the coverage graph MDP over AirSim drones (the
+        # reference's registration names a class that does not exist)
+        from gym_flock_tpu_torch.compat.gym_api import make_legacy
+
+        legacy = make_legacy("Coverage-v0", device=device, **kwargs)
+        bridge = AirsimCoverageBridge(client, legacy, settings_path=settings_path,
+                                      names=names, home=home)
+        return bridge, legacy.params
+
+    return factory
+
+
+register("FlockingAirsimAccel-v0", _airsim_factory("FlockingAirsimAccel-v0"), 200)
+register("MappingAirsim-v0", _airsim_factory("MappingAirsim-v0"), 100000)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gym_flock_tpu_torch.envs.coverage import CoverageParams, CoverageState, prepare_bank
+from gym_flock_tpu_torch.envs.coverage_graph import strip_operands
 from gym_flock_tpu_torch.envs.flocking import FlockingParams, FlockingState, _state_from_x
 from gym_flock_tpu_torch.envs.flocking_multi import FlockingMultiParams, FlockingMultiState
 from gym_flock_tpu_torch.envs.formation import FormationParams, FormationState
@@ -142,11 +143,6 @@ def flocking_multi_state_from_numpy(state, device) -> FlockingMultiState:
     )
 
 
-# the JAX package's one-hot / matrix-product operands, which the port's
-# gather formulations do not read
-_JAX_ONLY_KEYS = ("hide_send_onehot", "hide_recv_onehot", "hide_adj", "cost_rows_pad")
-
-
 def _tensor(value, device) -> torch.Tensor:
     a = np.asarray(value)
     if a.dtype.name == "bfloat16":  # numpy's bf16 is not a torch dtype
@@ -163,10 +159,7 @@ def coverage_params_from_jax(jax_params, device="cpu") -> CoverageParams:
         f.name: _plain(getattr(jax_params, f.name))
         for f in dataclasses.fields(CoverageParams) if f.name != "bank"
     }
-    bank = {
-        k: _tensor(v, device) for k, v in jax_params.bank.items()
-        if k not in _JAX_ONLY_KEYS and not k.startswith("disc_reach_r")
-    }
+    bank = {k: _tensor(v, device) for k, v in strip_operands(jax_params.bank).items()}
     bank = prepare_bank(bank, fields["hide_nodes"], fields["discover_radius"])
     return CoverageParams(bank=bank, **fields)
 

@@ -80,17 +80,19 @@ class Discrete(Space):
 @dataclasses.dataclass(frozen=True)
 class MultiDiscrete(Space):
     """Cartesian product of discrete spaces with per-dim cardinality ``nvec``
-    (``MultiDiscrete([n_actions] * n_robots)`` of the coverage envs)."""
+    (``MultiDiscrete([n_actions] * n_robots)`` of the coverage envs).  A
+    tuple of equal-length tuples gives a 2-D space (gymnasium's batched
+    ``MultiDiscrete``, ``[n, len(row)]``)."""
 
-    nvec: Tuple[int, ...]
+    nvec: Tuple
     dtype: torch.dtype = torch.int32
 
     @property
     def shape(self) -> Tuple[int, ...]:  # type: ignore[override]
-        return (len(self.nvec),)
+        return tuple(torch.tensor(self.nvec).shape)
 
     def sample(self, generator: torch.Generator, batch: Tuple[int, ...] = ()):
-        """``[*batch, len(nvec)]``, entry i uniform over ``[0, nvec[i])``."""
+        """``[*batch, *shape]``, each entry uniform over ``[0, its nvec)``."""
         dev = generator.device
         u = torch.rand(tuple(batch) + self.shape, generator=generator, device=dev,
                        dtype=torch.float64)

@@ -20,14 +20,26 @@ gather formulations: the greedy expert's packed min runs on K5
 (``ops.rowmin``) for every bank that carries ``cost_pack_ok`` and
 ``cost_rows_pad``, and discovery scatters per-node reach lists.
 
-Flag modes not ported yet: ``comm_edges``, ``last_edge_feature``,
-``pos_delta`` and ``revisit_nodes`` raise ``NotImplementedError`` (no
-registered id sets them).
+Flag modes (reference coverage.py:41-46; no registered id sets them):
+``revisit_nodes`` (a visited target reverts with p = 0.005 a step),
+``comm_edges`` (robot-robot edges within ``comm_radius`` at the buffer's
+tail), ``last_edge_feature`` (a flag column on the tail edge into each
+robot from its pre-move node) and ``pos_delta`` (the JAX package's repaired
+``[flag?, dx, dy, dist]`` edge layout).
+
+Banks are memoized in the process and cached on disk, keyed on their
+configuration (``default_coverage_bank``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 import math
+import os
+import time
+import zipfile
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -50,7 +62,7 @@ __all__ = [
 
 MAX_COST = 1000.0
 DELTA = 5.5
-_UNPORTED_MODES = ("comm_edges", "last_edge_feature", "pos_delta", "revisit_nodes")
+REVISIT_P = 0.005  # a visited target's chance to revert a step (coverage.py:246-247)
 
 
 # =============================================================================
@@ -106,11 +118,12 @@ class CoverageParams:
 
     @property
     def n_comm_edges(self) -> int:
-        # robot-robot comm edge slots (the comm_edges mode, not ported yet)
+        # robot-robot comm edge slots (R*(R-1) pairs, masked when out of range)
         return self.n_robots * (self.n_robots - 1) if self.comm_edges else 0
 
     @property
     def n_edge_feat(self) -> int:
+        # [dist] or [last_edge_flag, dist]; pos_delta: [flag?, dx, dy, dist]
         base = 3 if self.pos_delta else 1
         return base + (1 if self.last_edge_feature else 0)
 
@@ -172,10 +185,20 @@ def _resolve_conflicts(cur: torch.Tensor, chosen: torch.Tensor, collision_checks
         nl = torch.where(resolve_now, torch.where(definitely_taken, cur, chosen), nl)
 
 
-def _check_modes(params: CoverageParams) -> None:
-    on = [m for m in _UNPORTED_MODES if getattr(params, m)]
-    if on:
-        raise NotImplementedError(f"coverage flag modes not ported yet: {', '.join(on)}")
+def revisit_flips(generator: torch.Generator, n_envs: int, n_targets: int) -> torch.Tensor:
+    """``[B, T]`` bool draw of the ``revisit_nodes`` mode: True where a
+    target reverts to unvisited this step (p = ``REVISIT_P``, ``u < p`` as
+    ``jax.random.bernoulli``)."""
+    u = torch.rand(n_envs, n_targets, generator=generator, device=generator.device)
+    return u < REVISIT_P
+
+
+def _comm_pairs(r: int, device):
+    """The R*(R-1) off-diagonal robot pairs ``(i, j)`` in row-major order
+    (``np.nonzero`` of an off-diagonal mask)."""
+    ii = torch.arange(r, device=device).repeat_interleave(max(r - 1, 0))
+    jj = torch.arange(r * (r - 1), device=device) % max(r - 1, 1)
+    return ii, torch.where(jj >= ii, jj + 1, jj)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -263,10 +286,13 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
 
     # ------------------------------------------------------------------- step
 
-    def step_env(self, generator, state: CoverageState, action, params: CoverageParams):
+    def step_env(self, generator, state: CoverageState, action, params: CoverageParams,
+                 flip: Optional[torch.Tensor] = None):
         """Apply ``action [B, R]`` (or ``[B, R, 1]``; out-of-range entries
-        clamp to the nearest action index).  The dynamics are deterministic
-        in the modes ported, so ``generator`` is only checked."""
+        clamp to the nearest action index).  The dynamics are deterministic;
+        ``generator`` feeds only the ``revisit_nodes`` draw
+        (:func:`revisit_flips`), which a ``None`` generator skips and
+        ``flip [B, T]`` replaces."""
         if generator is not None:
             _check_generator(generator, params)
         b, r = state.robot_loc.shape
@@ -278,7 +304,7 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
         next_locs, rounds = _resolve_conflicts(cur, chosen, params.collision_checks)
         self.conflict_rounds += rounds
         state = dataclasses.replace(state, robot_loc=next_locs.to(torch.int32), last_loc=cur)
-        obs, reward, done, state = self._obs_reward(state, params)
+        obs, reward, done, state = self._obs_reward(state, params, generator, flip)
         return state, obs, reward, done, {}
 
     # ----------------------------------------------------------- obs / reward
@@ -301,10 +327,15 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
             seen = nodes_within_radius(params.discover_radius, robot_pos, all_pos)[:, r:]
         return seen & mask
 
-    def _obs_reward(self, state: CoverageState, params: CoverageParams):
+    def _obs_reward(self, state: CoverageState, params: CoverageParams,
+                    generator: Optional[torch.Generator] = None,
+                    flip: Optional[torch.Tensor] = None):
         """Observation graph + reward (reference _get_obs_reward,
-        coverage.py:234-364); returns ``(obs, reward, done, state)``."""
-        _check_modes(params)
+        coverage.py:234-364); returns ``(obs, reward, done, state)``.
+
+        Under ``revisit_nodes`` each visited target reverts where ``flip``
+        (``[B, T]`` bool) holds, drawn from ``generator`` when not given; a
+        reset passes neither, as the JAX package passes no key there."""
         bank = params.bank
         r, t, a, e = params.n_robots, params.max_targets, params.n_actions, params.max_edges
         b = state.graph.shape[0]
@@ -314,6 +345,12 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
         maskf = mask.float()
         n_targets = bank["n_targets"][gl]
         cur = state.robot_loc.long()
+
+        visited = state.visited
+        if params.revisit_nodes and (flip is not None or generator is not None):
+            if flip is None:
+                flip = revisit_flips(generator, b, t)
+            visited = torch.where(flip & mask, 0.0, visited)
 
         # ---- action edges (reference get_action_edges, coverage.py:206-232),
         # doubled (coverage.py:259-261) and written at the buffer tail with
@@ -327,21 +364,118 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
         tail_senders = torch.cat([nodes_g, robots], dim=1)
         tail_receivers = torch.cat([robots, nodes_g], dim=1)
         tail_dist = torch.cat([dist, dist], dim=1) / params.res  # (:292)
+        n_action = tail_senders.shape[1]
+
+        if params.pos_delta or params.comm_edges:
+            tp = bank["target_pos"][gl]  # [B, T, 2]
+            robot_pos = tp.gather(1, cur[..., None].expand(b, r, 2))  # [B, R, 2]
+        if params.pos_delta:
+            # the repaired USE_POS_DELTA: pos[sender] - pos[receiver] of each
+            # action edge, negated on the reversed duplicates
+            nbr_pos = tp.gather(1, nbr.reshape(b, r * a, 1).long().expand(b, r * a, 2))
+            nd = nbr_pos - robot_pos.repeat_interleave(a, dim=1)
+            tail_diff = torch.cat([nd, -nd], dim=1) / params.res
+
+        # ---- robot-robot comm edges (COMM_EDGES, coverage.py:271-280): the
+        # R*(R-1) off-diagonal pairs in row-major order, those in range
+        # compacted stably to the front of the comm block
+        if params.comm_edges:
+            ii, jj = _comm_pairs(r, dev)
+            dmat = torch.sqrt(((robot_pos[:, :, None, :] - robot_pos[:, None, :, :]) ** 2)
+                              .sum(dim=-1))
+            dvals = dmat[:, ii, jj]  # [B, R*(R-1)]
+            valid = (dvals > 0) & (dvals <= params.comm_radius)
+            n_comm = valid.sum(dim=1)
+            order = torch.where(valid, 0, 1).argsort(dim=1, stable=True)
+            slot = torch.arange(ii.shape[0], device=dev)[None, :] < n_comm[:, None]
+            comm_senders = torch.where(slot, ii[order], -1).to(torch.int32)
+            comm_receivers = torch.where(slot, jj[order], -1).to(torch.int32)
+            comm_dist = torch.where(slot, dvals.gather(1, order), 0.0) / params.res
+            tail_senders = torch.cat([tail_senders, comm_senders], dim=1)
+            tail_receivers = torch.cat([tail_receivers, comm_receivers], dim=1)
+            tail_dist = torch.cat([tail_dist, comm_dist], dim=1)
+            if params.pos_delta:
+                cd = (robot_pos[:, ii] - robot_pos[:, jj]).gather(
+                    1, order[..., None].expand(b, ii.shape[0], 2))
+                tail_diff = torch.cat([tail_diff, torch.where(slot[..., None], cd, 0.0)
+                                       / params.res], dim=1)
+            # the block sits flush at the buffer's end: its start moves with
+            # each env's comm-edge count
+            tail_start = e - (n_action + n_comm)  # [B]
+
+        # ---- last-edge flag (LAST_EDGE_FEATURE, coverage.py:296-308): tail
+        # edge k is flagged where it points INTO robot i from i's pre-move
+        # node (all zeros after a reset)
+        if params.last_edge_feature:
+            last_g = torch.where(state.last_loc >= 0, state.last_loc + r, -2)
+            safe_recv = tail_receivers.long().clamp(0, r - 1)
+            last_flag = ((tail_receivers < r)
+                         & (tail_senders == last_g.gather(1, safe_recv))).float()
 
         # ---- visited update + reward (coverage.py:265-266, 357-359)
-        visited = state.visited
         old_sum = (visited * maskf).sum(dim=1)
         visited = visited.scatter(1, cur, 1.0)
         new_sum = (visited * maskf).sum(dim=1)
         reward = new_sum - old_sum
 
-        # ---- buffers: motion edges first, raw distances in column 0
-        # (coverage.py:592 does NOT normalize by res), action edges at the tail
+        # ---- buffers: motion edges first, raw distances (coverage.py:592
+        # does NOT normalize by res), the tail edges at the end
         n_tail = tail_senders.shape[1]
-        motion = e - n_tail
-        senders = torch.cat([bank["motion_senders"][gl][:, :motion], tail_senders], dim=1)
-        receivers = torch.cat([bank["motion_receivers"][gl][:, :motion], tail_receivers], dim=1)
-        edge_feat = torch.cat([bank["motion_dists"][gl][:, :motion], tail_dist], dim=1)
+        flag_layout = params.comm_edges or params.pos_delta or params.last_edge_feature
+
+        def motion_diff(ms, mr):
+            # pos[sender] - pos[receiver] of the motion edges, 0 on pads
+            sp = tp.gather(1, (ms.long() - r).clamp(0, t - 1)[..., None].expand(*ms.shape, 2))
+            rp = tp.gather(1, (mr.long() - r).clamp(0, t - 1)[..., None].expand(*mr.shape, 2))
+            return torch.where((ms >= 0)[..., None], sp - rp, 0.0)
+
+        if not flag_layout:
+            motion = e - n_tail
+            senders = torch.cat([bank["motion_senders"][gl][:, :motion], tail_senders], dim=1)
+            receivers = torch.cat([bank["motion_receivers"][gl][:, :motion], tail_receivers],
+                                  dim=1)
+            edge_feat = torch.cat([bank["motion_dists"][gl][:, :motion], tail_dist],
+                                  dim=1)[..., None]
+        else:
+            if not params.comm_edges:
+                tail_start = torch.full((b,), e - n_tail, device=dev)
+            # [motion | tail] gathered by a per-env index: position p holds
+            # motion row p before tail_start and tail row p - tail_start
+            # after it.  Under comm_edges, rows between the motion block and
+            # the tail are -1 and zero-featured (the reference leaves stale
+            # rows there).
+            pad = e - bank["motion_senders"].shape[1]
+            neg = torch.full((b, pad), -1, dtype=torch.int32, device=dev)
+            zpad = torch.zeros(b, pad, device=dev)
+            motion_s = torch.cat([bank["motion_senders"][gl], neg], dim=1)
+            motion_r = torch.cat([bank["motion_receivers"][gl], neg], dim=1)
+            motion_d = torch.cat([bank["motion_dists"][gl], zpad], dim=1)
+            p = torch.arange(e, device=dev)[None, :]
+            is_tail = p >= tail_start[:, None]
+            idx = torch.where(is_tail, p - tail_start[:, None] + e, p)
+
+            def place(motion_col, tail_col):
+                return torch.cat([motion_col, tail_col], dim=1).gather(1, idx)
+
+            senders = place(motion_s, tail_senders)
+            receivers = place(motion_r, tail_receivers)
+            dist_col = place(motion_d, tail_dist)
+            zeros_e = torch.zeros(b, e, device=dev)
+            if params.pos_delta:
+                mdiff = motion_diff(motion_s, motion_r)
+                cols = [place(mdiff[..., 0], tail_diff[..., 0]),
+                        place(mdiff[..., 1], tail_diff[..., 1]), dist_col]
+                if params.last_edge_feature:
+                    cols = [place(zeros_e, last_flag)] + cols
+                edge_feat = torch.stack(cols, dim=2)
+            elif params.last_edge_feature:
+                # the tail's dist moves to column 1 while motion rows keep
+                # theirs in column 0 (a reference quirk)
+                flag_col = place(zeros_e, last_flag)
+                edge_feat = torch.stack([torch.where(is_tail, flag_col, dist_col),
+                                         torch.where(is_tail, dist_col, 0.0)], dim=2)
+            else:
+                edge_feat = dist_col[..., None]
 
         # ---- node features (coverage.py:319-329)
         zeros_r = torch.zeros(b, r, device=dev)
@@ -366,7 +500,11 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
                 1, receivers.long().clamp(0, r + t - 1), frontier_mask.float(), "amax"
             )
             seen_edges = d_send * d_recv
-            seen_edges[:, e - n_tail:] = 1.0  # tail edges always visible (:343)
+            # tail (action and comm) edges are always visible (:343)
+            if flag_layout:
+                seen_edges = torch.where(is_tail, 1.0, seen_edges)
+            else:
+                seen_edges[:, e - n_tail:] = 1.0
             if params.n_node_feat >= 4:
                 cols.append(frontier)
             out_senders = torch.where(seen_edges > 0, senders, -1)
@@ -381,7 +519,7 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
         done = (time == params.episode_length) | (new_sum >= n_targets)
         obs = {
             "nodes": nodes,
-            "edges": edge_feat.reshape(b, e, 1),
+            "edges": edge_feat,
             "senders": out_senders.to(torch.int32),
             "receivers": receivers.to(torch.int32),
             "step": step,
@@ -467,6 +605,60 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
 
 # in-process memo of built banks: config -> CPU bank, (config, device) -> bank
 _bank_cache: Dict[tuple, Any] = {}
+CACHE_ENV = "GYM_FLOCK_TPU_TORCH_CACHE"
+# where the last bank that missed the process memo came from ("disk" or
+# "build") and the seconds of its read, build and write to the disk cache
+last_bank_timing: Dict[str, Any] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _builder_digest() -> str:
+    """Hash of the bank builder's source (this module and
+    ``coverage_graph``): it keys the disk cache's file names, so a change
+    to the build never reads a bank built before it.  The file schema,
+    BANK_SCHEMA, is the JAX package's and changes only with it."""
+    h = hashlib.sha1()
+    for mod in (__file__, cg.__file__):
+        h.update(Path(mod).read_bytes())
+    return h.hexdigest()
+
+
+def bank_cache_dir() -> Path:
+    """The disk cache's directory: ``$GYM_FLOCK_TPU_TORCH_CACHE``, else
+    ``~/.cache/gym_flock_tpu_torch`` (never the JAX package's directory,
+    whose banks carry its own operand layouts)."""
+    default = Path.home() / ".cache" / "gym_flock_tpu_torch"
+    return Path(os.environ.get(CACHE_ENV, default))
+
+
+def _cached_bank(cache_key, build):
+    """The CPU bank of ``cache_key``: from the disk cache when a readable
+    file of the current schema is there, else ``build()``, written to the
+    cache through a temp file and a rename.  A corrupt or stale file is
+    rebuilt; a cache directory that cannot be written leaves the bank in
+    the process memo only."""
+    digest = hashlib.sha1(repr((_builder_digest(),) + cache_key).encode()).hexdigest()[:16]
+    path = bank_cache_dir() / f"bank_{digest}.npz"
+    last_bank_timing.clear()
+    t0 = time.perf_counter()
+    if path.exists():
+        try:
+            bank = prepare_bank(cg.load_graph_bank(str(path)))
+            last_bank_timing.update(source="disk", read_seconds=time.perf_counter() - t0)
+            return bank
+        except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+            pass  # corrupt or stale: rebuild
+    t0 = time.perf_counter()
+    bank = build()
+    t1 = time.perf_counter()
+    try:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        cg.save_graph_bank(str(path), cg.strip_operands(bank))
+    except OSError:
+        pass  # read-only filesystem: the process memo only
+    last_bank_timing.update(source="build", build_seconds=t1 - t0,
+                            write_seconds=time.perf_counter() - t1)
+    return bank
 
 
 def default_coverage_bank(
@@ -488,14 +680,17 @@ def default_coverage_bank(
     largest component.  Oversized maps (> max_targets) are redrawn.
     ``max_nodes=None`` (full maps only) sizes the bank to the map.  The
     bank carries K5's operand ``cost_rows_pad`` whenever it carries
-    ``cost_pack_ok`` and ``graph_cost_mm``.  The JAX package's disk cache is
-    not ported yet.
+    ``cost_pack_ok`` and ``graph_cost_mm``.
+
+    Built banks are memoized in the process and cached on disk under
+    :func:`bank_cache_dir` (the real ExploreFull bank takes tens of seconds
+    to build), keyed on the configuration, the builder's source and, for a
+    map file, its content hash.  ``last_bank_timing`` says where the last
+    bank that missed the memo came from and how long that took.
     """
     keyed_kwargs = dict(map_kwargs)
     if isinstance(keyed_kwargs.get("path"), str):
         # key by map-file CONTENT, not path
-        import hashlib
-
         with open(keyed_kwargs["path"], "rb") as f:
             keyed_kwargs["path"] = (keyed_kwargs["path"], hashlib.sha1(f.read()).hexdigest())
     cache_key = (n_graphs, n_robots, max_nodes, horizon, seed, kind,
@@ -504,9 +699,8 @@ def default_coverage_bank(
     if (cache_key, dev) in _bank_cache:
         return _bank_cache[(cache_key, dev)]
     if cache_key not in _bank_cache:
-        _bank_cache[cache_key] = _build_bank(
-            n_graphs, n_robots, max_nodes, horizon, seed, kind, dict(map_kwargs)
-        )
+        _bank_cache[cache_key] = _cached_bank(cache_key, lambda: _build_bank(
+            n_graphs, n_robots, max_nodes, horizon, seed, kind, dict(map_kwargs)))
     bank = {k: v.to(dev) for k, v in _bank_cache[cache_key].items()}
     _bank_cache[(cache_key, dev)] = bank
     return bank
@@ -643,9 +837,6 @@ def coverage_factory(variant: str):
             raise ValueError(variant)
         user_max_nodes = "max_nodes" in kwargs
         cfg.update(kwargs)
-        on = [m for m in _UNPORTED_MODES if cfg.get(m)]
-        if on:
-            raise NotImplementedError(f"coverage flag modes not ported yet: {', '.join(on)}")
         bank = cfg.pop("bank", None)
         if bank is not None and real_map not in (None, False):
             raise ValueError(
@@ -689,11 +880,25 @@ def coverage_factory(variant: str):
         elif device is not None and not _same_device(bank["n_targets"].device, device):
             raise ValueError(f"bank= lies on {bank['n_targets'].device}, not on {device}")
         disc_r = cfg.get("discover_radius", CoverageParams.discover_radius)
-        if cfg.get("hide_nodes"):
+        if cfg.get("hide_nodes") and not cfg.get("comm_edges"):
+            # as the JAX factory sets it (its discovery-mask route's bound):
             # neighbor_dist rows pad with self-loops at dist 0, so the plain
             # max is the longest motion/action edge
             cfg.setdefault("max_neighbor_dist", float(bank["neighbor_dist"].max()))
         bank = prepare_bank(bank, cfg.get("hide_nodes", False), disc_r)
-        return env, CoverageParams(bank=bank, **cfg)
+        params = CoverageParams(bank=bank, **cfg)
+        if params.comm_edges:
+            # the comm slots shrink the motion-edge region below what
+            # build_graph_spec checked (the reference asserts 'Increase
+            # MAX_EDGES' at run time, coverage.py:288)
+            max_motion = int(bank["n_motion_edges"].max())
+            room = params.max_edges - params.n_action_edges - params.n_comm_edges
+            if max_motion > room:
+                raise ValueError(
+                    f"comm_edges=True reserves {params.n_comm_edges} tail slots "
+                    f"but a bank graph has {max_motion} motion edges > {room}; "
+                    "raise max_nodes"
+                )
+        return env, params
 
     return factory

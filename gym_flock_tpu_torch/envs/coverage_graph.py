@@ -10,12 +10,14 @@ stacks the specs into a dict of torch tensors on one device.
 Not ported: the one-hot / matrix-multiply operands of the JAX package
 (``hide_mm_operands``, ``disc_reach_operand``), which exist to avoid slow
 gathers on the TPU; the port takes the gather formulations, and
-:func:`disc_reach_lists` replaces the reach table.  Also not ported yet: the
-obstacle and legacy target layouts and the bank's save/load.
+:func:`disc_reach_lists` replaces the reach table.  Banks are saved and
+loaded in the JAX package's ``.npz`` format (:func:`save_graph_bank`,
+:func:`load_graph_bank`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -35,6 +37,16 @@ __all__ = [
     "targets_from_occupancy",
     "disc_reach_lists",
     "reach_key",
+    "in_obstacle",
+    "gen_obstacle_grid",
+    "reject_collisions",
+    "gen_square",
+    "gen_grid",
+    "gen_sparse_grid",
+    "BANK_SCHEMA",
+    "save_graph_bank",
+    "load_graph_bank",
+    "strip_operands",
 ]
 
 # reference constants (coverage.py:54-80)
@@ -501,3 +513,152 @@ def disc_reach_lists(bank, discover_radius: float):
         out[g, rr, np.arange(rr.shape[0]) - start[rr]] = cc
     device = bank["target_pos"].device
     return {reach_key(discover_radius): torch.from_numpy(out).to(device)}
+
+
+# =============================================================================
+# Obstacle rejection & legacy target layouts (reference make_map.py:8-27,70-180)
+# =============================================================================
+
+
+def in_obstacle(obstacles, px: float, py: float) -> bool:
+    """Point-in-any-rectangle test (reference make_map.py:8-19)."""
+    for (xmin, xmax, ymin, ymax) in obstacles:
+        if xmin <= px <= xmax and ymin <= py <= ymax:
+            return True
+    return False
+
+
+def gen_obstacle_grid(ranges):
+    """Cartesian product of 1-D ranges into rectangles (make_map.py:22-27)."""
+    return [(x1, x2, y1, y2) for (x1, x2) in ranges for (y1, y2) in ranges]
+
+
+def reject_collisions(points: np.ndarray, obstacles=None) -> np.ndarray:
+    """Drop points inside rectangular obstacles (make_map.py:70-87)."""
+    if obstacles is None or len(obstacles) == 0:
+        return points
+    flag = np.array(
+        [not in_obstacle(obstacles, p[0], p[1]) for p in points], dtype=bool
+    )
+    return points[flag, :]
+
+
+def _layout(sides, x_max: float, y_max: float) -> np.ndarray:
+    """The sorted set of meshgrid points of each ``(xs, ys)`` side, plus the
+    corner ``(x_max, y_max)``."""
+    targets = set()
+    for tempx, tempy in sides:
+        tx, ty = np.meshgrid(tempx, tempy)
+        targets |= set(zip(tx.flatten(), ty.flatten()))
+    targets.add((x_max, y_max))
+    return np.array(sorted(targets))
+
+
+def gen_square(n_targets: int, x_max: float, y_max: float) -> np.ndarray:
+    """Targets on the perimeter of a square (reference make_map.py:90-122,
+    returned as an array instead of mutating an env in place)."""
+    per_side = int(n_targets / 4)
+    return _layout((
+        (np.linspace(-x_max, -x_max, 1), np.linspace(-y_max, y_max, per_side, endpoint=False)),
+        (np.linspace(x_max, x_max, 1), np.linspace(-y_max, y_max, per_side, endpoint=False)),
+        (np.linspace(-x_max, x_max, per_side, endpoint=False), np.linspace(y_max, y_max, 1)),
+        (np.linspace(-x_max, x_max, per_side, endpoint=False), np.linspace(-y_max, -y_max, 1)),
+    ), x_max, y_max)
+
+
+def gen_grid(n_targets: int, spacing: float) -> np.ndarray:
+    """Square grid of targets (reference make_map.py:125-133)."""
+    side = int(np.sqrt(n_targets))
+    extent = spacing * side
+    tempx = np.linspace(-extent, extent, side)
+    tempy = np.linspace(-extent, extent, side)
+    tx, ty = np.meshgrid(tempx, tempy)
+    return np.stack((tx.flatten(), ty.flatten()), axis=1)
+
+
+def gen_sparse_grid(n_targets: int, x_max: float, y_max: float,
+                    x_step: float, y_step: float) -> np.ndarray:
+    """Perimeter + center-cross sparse layout (reference make_map.py:136-180)."""
+    per_side = int(n_targets / 6)
+    return _layout((
+        (np.linspace(-x_max, -x_max, 1), np.linspace(-y_max, y_max, per_side, endpoint=False)),
+        (np.linspace(x_max, x_max, 1), np.linspace(-y_max, y_max, per_side, endpoint=False)),
+        (np.linspace(0, 0, 1), np.linspace(-y_max + y_step, y_max, per_side, endpoint=False)),
+        (np.linspace(-x_max, x_max, per_side, endpoint=False), np.linspace(y_max, y_max, 1)),
+        (np.linspace(-x_max, x_max, per_side, endpoint=False), np.linspace(-y_max, -y_max, 1)),
+        (np.linspace(-x_max + x_step, x_max, per_side, endpoint=False), np.linspace(0, 0, 1)),
+    ), x_max, y_max)
+
+
+# =============================================================================
+# Bank save / load (the JAX package's .npz format)
+# =============================================================================
+
+# On-disk bank schema, written into every .npz and checked at load; equal to
+# the JAX package's, whose files this module reads and writes.
+BANK_SCHEMA = 6
+# operands derived from a bank's build keys, whose layout differs between the
+# packages under the same key: the JAX package's one-hot discovery operands
+# and its folded K5 operand; the reach tables/lists (``disc_reach_r*``) too
+_OPERAND_KEYS = ("hide_send_onehot", "hide_recv_onehot", "hide_adj", "cost_rows_pad")
+
+
+def strip_operands(bank) -> dict:
+    """``bank`` without its derived operands (either package's), to be
+    rebuilt for the port by ``envs.coverage.prepare_bank``."""
+    return {k: v for k, v in bank.items()
+            if k not in _OPERAND_KEYS and not k.startswith("disc_reach_r")}
+
+
+def save_graph_bank(path: str, bank) -> None:
+    """Write ``bank`` (tensors on any device) to ``path`` in the JAX
+    package's ``save_graph_bank`` format: an ``.npz``, bfloat16 arrays
+    stored as float32 and listed under ``__bf16_keys__``, the schema under
+    ``__bank_schema__``, written to a temp file and renamed into place so a
+    concurrent reader never sees a torn file.  The JAX package compresses
+    its file; this one is stored uncompressed (larger, no compression time
+    on the write), which ``np.load``, and so either package's loader, reads
+    the same."""
+    arrays, bf16_keys = {}, []
+    for k, v in bank.items():
+        if isinstance(v, torch.Tensor):
+            if v.dtype == torch.bfloat16:
+                v = v.float()
+                bf16_keys.append(k)
+            a = v.detach().cpu().numpy()
+        else:
+            a = np.asarray(v)
+            if a.dtype.name == "bfloat16":
+                a = a.astype(np.float32)
+                bf16_keys.append(k)
+        arrays[k] = a
+    arrays["__bf16_keys__"] = np.asarray(bf16_keys)
+    arrays["__bank_schema__"] = np.asarray(BANK_SCHEMA, dtype=np.int64)
+    tmp = f"{path}.tmp.{os.getpid()}.npz"
+    try:
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_graph_bank(path: str, device="cpu") -> dict:
+    """A bank written by :func:`save_graph_bank` (or the JAX package's), as
+    tensors on ``device``, bfloat16 keys restored.  Raises ``ValueError``
+    when the file has no ``__bank_schema__`` or another schema."""
+    with np.load(path) as data:
+        if "__bank_schema__" not in data.files:
+            raise ValueError(f"{path}: no __bank_schema__ key (a bank file from before "
+                             "versioning); rebuild it")
+        found = int(data["__bank_schema__"])
+        if found != BANK_SCHEMA:
+            raise ValueError(f"{path}: bank schema {found} != current {BANK_SCHEMA}; rebuild")
+        bf16 = set(data["__bf16_keys__"].tolist()) if "__bf16_keys__" in data.files else set()
+        bank = {}
+        for k in data.files:
+            if k in ("__bf16_keys__", "__bank_schema__"):
+                continue
+            t = torch.from_numpy(data[k]).to(device)
+            bank[k] = t.to(torch.bfloat16) if k in bf16 else t
+        return bank

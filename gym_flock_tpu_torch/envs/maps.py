@@ -15,13 +15,14 @@ Search order (first hit wins):
 4. ``$GYM_FLOCK_REFERENCE``: a gym-flock source checkout.
 
 The JAX module also searches a fixed checkout path; the port does not: point
-``$GYM_FLOCK_REFERENCE`` at a checkout instead.  The JAX module's one-time
-warning when a bundled copy shadows a different file further down the list
-is not ported yet.
+``$GYM_FLOCK_REFERENCE`` at a checkout instead.  A hit that shadows a
+different file of the same name further down the list warns once a name.
 """
 from __future__ import annotations
 
+import hashlib
 import os
+import warnings
 from pathlib import Path
 from typing import List, Optional
 
@@ -60,11 +61,43 @@ def find_reference_map(downsample_rate: int = 10) -> Optional[str]:
     ``downsample_rate=10`` is what every reference occupancy env uses.
     """
     name = f"grid_slice{downsample_rate}.npy"
-    for d in reference_map_dirs():
+    dirs = reference_map_dirs()
+    for i, d in enumerate(dirs):
         p = d / name
         try:
             if p.is_file():
+                _warn_if_shadowing(p, name, dirs[i + 1:])
                 return str(p)
         except OSError:  # pragma: no cover
             continue
     return None
+
+
+_warned_shadow: set = set()
+
+
+def _warn_if_shadowing(hit: Path, name: str, lower_dirs: List[Path]) -> None:
+    """Warn once for ``name`` when a lower-priority directory holds a
+    different ``grid_sliceN.npy`` than the one selected (a custom map in a
+    checkout would otherwise lose silently to the bundled copy); copies
+    with the same content stay silent."""
+    if name in _warned_shadow:
+        return
+    try:
+        hit_digest = hashlib.sha256(hit.read_bytes()).hexdigest()
+    except OSError:  # pragma: no cover
+        return
+    for d in lower_dirs:
+        q = d / name
+        try:
+            if q.is_file() and hashlib.sha256(q.read_bytes()).hexdigest() != hit_digest:
+                _warned_shadow.add(name)
+                warnings.warn(
+                    f"{hit} shadows a different {name} at {q}; set "
+                    "$GYM_FLOCK_TPU_MAPS to that directory to use it instead",
+                    stacklevel=3,
+                )
+                return
+        except OSError:  # pragma: no cover
+            continue
+    _warned_shadow.add(name)

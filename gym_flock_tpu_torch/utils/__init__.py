@@ -1,1 +1,2 @@
-"""Host utilities: the initial-formation generators."""
+"""Host utilities: the initial-formation generators, the AirSim settings
+parser and the profiling helpers."""

@@ -1,17 +1,20 @@
-"""Initial-formation generators, host NumPy (a copy of the generators of
-``gym_flock_tpu/utils/formations.py``; reference flocking/utils.py:6-50).
+"""Initial-formation generators and the AirSim settings parser, host
+NumPy (a copy of ``gym_flock_tpu/utils/formations.py``; reference
+flocking/utils.py:6-77).
 
-The flocking variants' deterministic resets read them: ``grid`` for
-FlockingObstacle-v0 and FlockingTwoFlocks-v0.  ``parse_settings`` (AirSim
-settings files) waits for the bridges.
+The flocking variants' deterministic resets read the generators (``grid``
+for FlockingObstacle-v0 and FlockingTwoFlocks-v0); the AirSim bridges read
+``grid`` and :func:`parse_settings`.
 """
 from __future__ import annotations
 
+import json
+import re
 from typing import Tuple
 
 import numpy as np
 
-__all__ = ["circle_helper", "circle", "grid", "twoflocks"]
+__all__ = ["circle_helper", "circle", "grid", "twoflocks", "parse_settings"]
 
 
 def circle_helper(n: int, dist: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -56,3 +59,37 @@ def twoflocks(n: int, delta: float = 6, side=None) -> Tuple[np.ndarray, np.ndarr
     vels1 = np.tile(np.array([[0.0, delta]]), (half_n, 1))
     vels2 = np.tile(np.array([[0.0, -delta]]), (half_n, 1))
     return np.vstack((grid1, grid2)), np.vstack((vels1, vels2))
+
+
+def parse_settings(fname: str) -> Tuple[list, np.ndarray]:
+    """Vehicle names and home offsets ``[n, 3]`` from an AirSim
+    settings.json.
+
+    First the reference's line regex (utils.py:67-77): the ``"X": ..,
+    "Y": .., "Z": ..`` triple on ONE line, and every ``"Name": {`` key but
+    "Vehicles" (non-vehicle object keys included, as the reference).  Where
+    that finds no homes, or not one per name (pretty-printed settings put
+    one coordinate a line), the ``Vehicles`` section is parsed as JSON
+    (insertion order, a missing coordinate 0).
+    """
+    names, homes = [], []
+    with open(fname) as f:
+        for line in f:
+            names.extend(n for n in re.findall(r"\"(.+?)\": {", line) if n != "Vehicles")
+            p = re.findall(
+                r'"X": ([-+]?\d*\.*\d+), "Y": ([-+]?\d*\.*\d+), "Z": ([-+]?\d*\.*\d+)',
+                line,
+            )
+            if p:
+                homes.append(np.array([float(v) for v in p[0]]).reshape((1, 3)))
+    if homes and len(homes) == len(names):
+        return names, np.concatenate(homes, axis=0)
+    with open(fname) as f:
+        vehicles = json.load(f).get("Vehicles", {})
+    names = list(vehicles)
+    if not names:
+        raise ValueError(f"no Vehicles found in {fname}")
+    homes = np.array(
+        [[float(v.get(k, 0.0)) for k in ("X", "Y", "Z")] for v in vehicles.values()]
+    )
+    return names, homes

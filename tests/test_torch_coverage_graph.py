@@ -114,6 +114,15 @@ def test_explore_full_factory_is_procedural_when_maps_are_off():
 @pytest.mark.parametrize("flag", ["comm_edges", "last_edge_feature", "pos_delta",
                                   "revisit_nodes"])
 def test_unported_modes_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        gft.make("Coverage-v0", n_graphs=1, device="cpu", **{flag: True})
+    """The four flag modes once raised ``NotImplementedError``; they are
+    ported now (held to JAX in ``tests/test_torch_coverage_modes.py``), so
+    each builds, resets and steps, with its edge-feature width."""
+    env, params = gft.make("Coverage-v0", n_graphs=1, device="cpu", **{flag: True})
+    gen = torch.Generator().manual_seed(0)
+    state, obs = env.reset_env(gen, params, 2)
+    state, obs, reward, done, _ = env.step_env(gen, state, env.controller(state, params, gen),
+                                               params)
+    assert getattr(params, flag)
+    assert obs["edges"].shape == (2, params.max_edges, params.n_edge_feat)
+    assert params.n_edge_feat == {"pos_delta": 3, "last_edge_feature": 2}.get(flag, 1)
 

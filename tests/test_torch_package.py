@@ -14,7 +14,7 @@ _JAX_IMPORT = re.compile(
 def _port_files():
     return sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + [
         "chip_smoke.py", "tools/train_quality_torch.py", "tools/profile_coverage_train.py",
-        "tools/profile_families.py"]
+        "tools/profile_families.py", "tools/profile_facades.py"]
 
 
 @pytest.mark.parametrize("rel", _port_files())
@@ -42,13 +42,31 @@ AIRSIM_IDS = ("FlockingAirsimAccel-v0", "MappingAirsim-v0")
 
 
 def test_registry_holds_every_jax_id_but_the_airsim_ones():
-    """The port registers every id of the JAX package except the two that
-    need an AirSim client, each with the JAX package's
-    ``max_episode_steps``."""
+    """The 23 ids that need no AirSim client, each with the JAX package's
+    ``max_episode_steps`` (the AirSim ids, registered too since they were
+    ported, are held by ``test_registry_holds_every_jax_id``)."""
     import gym_flock_tpu as gft_jax
     import gym_flock_tpu_torch as gft
 
     want = {k: v.max_episode_steps for k, v in gft_jax.registry.items() if k not in AIRSIM_IDS}
+    got = {k: v.max_episode_steps for k, v in gft.registry.items() if k not in AIRSIM_IDS}
+    assert got == want
+    assert len(got) == 23
+
+
+def test_registry_holds_every_jax_id():
+    """Every id of the JAX package, the two AirSim ones included, each with
+    its ``max_episode_steps``; an AirSim id without a client raises the JAX
+    package's ValueError."""
+    import gym_flock_tpu as gft_jax
+    import gym_flock_tpu_torch as gft
+
+    want = {k: v.max_episode_steps for k, v in gft_jax.registry.items()}
     got = {k: v.max_episode_steps for k, v in gft.registry.items()}
     assert got == want
-    assert len(got) == 23 and not set(AIRSIM_IDS) & set(got)
+    assert len(got) == 25 and set(AIRSIM_IDS) <= set(got)
+    for env_id in AIRSIM_IDS:
+        with pytest.raises(ValueError, match="requires an AirSim-compatible client"):
+            gft.make(env_id)
+        with pytest.raises(ValueError, match="requires an AirSim-compatible client"):
+            gft_jax.make(env_id)
