@@ -180,6 +180,34 @@ Phases, each printing one line:
    step max |k - p| / (1 + |p|) < 1e-5; stochastic steps with their dt
    replayed or their noise zeroed on both sides.
 
+26-28. the coverage flag modes and the bank's disk cache, the gym facades
+   and the AirSim bridges (their functions' docstrings say what each holds).
+29. ``parallel.distributed.initialize`` on NCCL at world size 1 (a
+   ``file://`` rendezvous in the run's temporary directory); a failure
+   raises.  One all-reduce and one all-gather timed.
+30. the agent shard's ring at P=4 on one card: K1's and K2's 16 (rank,
+   source) tiles of FlockingLarge-v0's reset state (B=16, N=4096) with
+   their global offsets, combined in ring order, held to the plain
+   version's tiles combined alike (K1's tolerances; K2's degree exactly and
+   1e-6, forward and the swapped-tile backward) and to one pass over the
+   whole swarm (the degree and channel 9 alike, the sums to the f32
+   rounding of their partials); the all-gather mode's tiles to unsharded K1.
+31. ``agent_sharded_rollout`` B=16 N=4096 16 steps on a 1 x 1 mesh, ring
+   and all-gather: K1 exactly once per reset draw, once for the first
+   controller and once per step; the reset equal to
+   ``LargeFlockingEnv.reset_env``'s, the first step to the env's
+   controller, integrator and observation and to the plain pipeline on
+   the host.
+32. the sharded train steps at world size 1: the agent-sharded step on
+   phase 14's batch (K2 twice an update, never backward, the first loss
+   phase 14's within 1e-5), and 2 steps each of the data-parallel flocking
+   step (phase 16's size), the sharded DAgger iteration (phase 20's) and
+   the data-parallel coverage step (phase 17's): K1 once a reset draw, K5
+   once a collect step.
+33. ``parity_exact`` at float64: FlockingRelative-v0 50 expert steps on the
+   card bitwise equal to the host's; Shepherding-v0's and Mapping-v0's
+   largest ulp gap to the host, each step from the card's state.
+
 Then one JSON line describing each kernel (its time, its plain version's,
 and its bound: the larger of the operations it must do over the f32 peak
 and the bytes it must move over the memory rate, counted from this run's
@@ -221,6 +249,9 @@ CR2 = 0.9 * 0.9  # the flocking envs' comm_radius2
 # K2 and K4 against their plain versions: both sum in f64 and round to f32
 # once, so they may differ by one f32 rounding, ~1.2e-7 |p|
 ADJ_TOL = 1e-6
+# a ring's f32 sum of partials against one whole-swarm pass, relative to
+# 1 + the sum of the partials' magnitudes (K1 read 2.4e-7, K2 1.8e-7 on an H100)
+RING_TOL = 1e-6
 # NVIDIA H100 SXM data sheet, at the full 700 W: f32 outside the tensor
 # cores, and HBM3
 F32_FLOPS = 67e12
@@ -2943,6 +2974,484 @@ def phase_bridges(device: str, n_steps: int) -> dict:
                          "ms_a_step": cov_s * 1e3 / n_steps}}
 
 
+# --------------------------------------------------------------------------
+# Phases 29-33: scale-out over torch.distributed, and the parity mode
+# --------------------------------------------------------------------------
+
+RING_P = 4  # ranks whose ring of tiles phase 30 runs on one card
+PARITY_STEPS = 50
+
+
+def phase_process_group(device: str, store_dir: str) -> dict:
+    """Phase 29: ``parallel.distributed.initialize`` on NCCL at world size 1
+    (a ``file://`` rendezvous under ``store_dir``); a failure raises.  Times
+    one all-reduce of the rollout's reward moments ([16, 4] f32) and one
+    all-gather of FlockingLarge-v0's state ([16, 4096, 4] f32), whose
+    backward must return the cotangent."""
+    import torch
+    import torch.distributed as dist
+
+    from gym_flock_tpu_torch.parallel import distributed as tdist
+    from gym_flock_tpu_torch.parallel.agent_shard import all_gather_agents
+
+    # one process on one card: its loopback is the only rendezvous it needs
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    tdist.initialize("nccl", f"file://{store_dir}/nccl_store", world_size=1, rank=0,
+                     timeout_s=300)
+    moments = torch.ones(16, 4, device=device)
+    dist.all_reduce(moments)
+    _sync()
+    init_s = time.perf_counter() - t0
+    if (dist.get_backend(), dist.get_world_size(), dist.get_rank()) != ("nccl", 1, 0):
+        raise AssertionError(f"process group {dist.get_backend()} "
+                             f"{dist.get_world_size()} {dist.get_rank()}")
+    if not torch.equal(moments, torch.ones_like(moments)):
+        raise AssertionError("an all-reduce at world size 1 changed its tensor")
+    state = torch.randn(16, 4096, 4, device=device, requires_grad=True)
+    gathered = all_gather_agents(state)
+    if not torch.equal(gathered, state):
+        raise AssertionError("an all-gather at world size 1 is not its input")
+    cotangent = torch.randn_like(state)
+    gathered.backward(cotangent)  # a reduce-scatter of the cotangent
+    if not torch.equal(state.grad, cotangent):
+        raise AssertionError("an all-gather's backward at world size 1 is not its cotangent")
+    state = state.detach()
+    return {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+            "init_and_first_collective_s": init_s,
+            "all_reduce_16x4_ms": time_ms(lambda: dist.all_reduce(moments)),
+            "all_gather_16x4096x4_ms": time_ms(lambda: all_gather_agents(state))}
+
+
+def large_reset_state(device: str, seed: int, n_envs: int = 16):
+    """FlockingLarge-v0's registered params and a reset of ``n_envs`` swarms
+    (the K1 launches of its draws are not the main path's)."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+
+    env, params = gft.make("FlockingLarge-v0")
+    state, _ = env.reset_env(torch.Generator(device=device).manual_seed(seed), params, n_envs)
+    return env, params, state
+
+
+def ring_order(p: int, rank: int):
+    """The column blocks in the order rank ``rank``'s ring visits them."""
+    return [(rank + s) % p for s in range(p)]
+
+
+def hold_to_partials(what: str, got, want, parts, tol: float) -> dict:
+    """Hold a sum of partial sums ``parts`` (summed in f32, as a ring combines
+    them) to ``want`` (one pass over the whole swarm): |k - p| within ``tol``
+    of 1 + the sum of the partials' magnitudes, the f32 rounding their
+    combination can reach where they cancel.  Returns that measure and the
+    usual max |k - p| / (1 + |p|)."""
+    magnitude = sum(q.abs() for q in parts)
+    diff = (got - want).abs()
+    err = float((diff / (1.0 + magnitude)).max())
+    if not err < tol:
+        raise AssertionError(f"{what}: max |k-p|/(1+sum|parts|) = {err:.3e} >= {tol}")
+    return {"rel_to_partials": err, "rel": float((diff / (1.0 + want.abs())).max())}
+
+
+def phase_ring_tiles(device: str, p: int) -> dict:
+    """Phase 30: the ring's tiles at P=``p`` on one card, on FlockingLarge-v0's
+    reset state (B=16, N=4096, m=N/p).  K1 over the p x p (rank, source)
+    pairs with their global offsets, each rank's parts combined by
+    ``agent_shard.combine_ring_parts``: held to the plain version's tiles
+    combined alike ("core" and "full": the degree exactly, channel 9 within
+    1 ulp, the sums max |k-p|/(1+|p|) < 1e-4), and to one pass over the
+    whole swarm (the degree and channel 9 alike, the sums within
+    RING_TOL of 1 + their partials' magnitudes, ``hold_to_partials``); the
+    all-gather mode's [m, N] tiles (whole rows) to unsharded K1 and its plain version
+    as phase 3 holds them.  Then K2's p x p tiles at F=6 summed in ring
+    order, raw and mean-pooled, and their backward (the swapped tiles), to
+    the plain version's tiles composed alike (the degree exactly, 1e-6) and
+    the sums to the whole swarm's as above."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.parallel.agent_shard import combine_ring_parts
+
+    _, params, state = large_reset_state(device, SEED + 30)
+    x = state.x
+    b, n, _ = x.shape
+    m = n // p
+    cr, cr2 = params.comm_radius, params.comm_radius2
+    blocks = [x[:, r * m:(r + 1) * m].contiguous() for r in range(p)]
+    worst = {"rel": 0.0, "ulp9": 0, "abs": 0.0}
+    to_whole = {"rel_to_partials": 0.0, "rel": 0.0}
+
+    def note(err):
+        for k in worst:
+            worst[k] = max(worst[k], err[k])
+
+    def ring_parts(fn, channels):
+        return [[fn(blocks[r], blocks[s], r * m, s * m, cr, cr2, channels)
+                 for s in ring_order(p, r)] for r in range(p)]
+
+    def ring_sums(parts):
+        return torch.cat([combine_ring_parts(list(q)) for q in parts], dim=1)
+
+    def gather_sums(channels):
+        return torch.cat([k1.flocking_sums_block(blocks[r], x, r * m, 0, cr, cr2, channels)
+                          for r in range(p)], dim=1)
+
+    sums = sum_channels("full")
+    for channels in ("core", "full"):
+        parts = ring_parts(k1.flocking_sums_block, channels)
+        ring = ring_sums(parts)
+        note(compare_sums(ring, ring_sums(ring_parts(k1.flocking_sums_block_reference,
+                                                     channels)), channels))
+        plain = k1.flocking_sums_block_reference(x, x, 0, 0, cr, cr2, channels)
+        for want in (k1.flocking_sums_block(x, x, 0, 0, cr, cr2, channels), plain):
+            note(compare_sums(gather_sums(channels), want, channels))
+        hold("ring's degree against the whole swarm's", ring[..., 8], plain[..., 8], 0, "exact")
+        if channels == "full":
+            ulp = int((ring[..., 9].view(torch.int32) - plain[..., 9].view(torch.int32))
+                      .abs().max())
+            if ulp > 1:
+                raise AssertionError(f"ring's channel 9 {ulp} ulp from the whole swarm's")
+        used = sums if channels == "full" else sum_channels("core")
+        err = hold_to_partials(f"ring's {channels} sums against the whole swarm's",
+                               ring[..., used], plain[..., used],
+                               [torch.cat([q[s][..., used] for q in parts], dim=1)
+                                for s in range(p)], RING_TOL)
+        to_whole = {k: max(to_whole[k], err[k]) for k in to_whole}
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    h = torch.randn(b, n, 6, generator=gen, device=device)
+    co = torch.randn(b, n, 6, generator=gen, device=device)
+    hb = [h[:, r * m:(r + 1) * m].contiguous() for r in range(p)]
+    adj = AdjErrors()
+
+    def ring_adj(fn, hs):
+        """``(out, deg, [each source's tiles])`` of the ring over ``fn``."""
+        outs, degs, parts = [], [], [[] for _ in range(p)]
+        for r in range(p):
+            tiles = [fn(blocks[r], blocks[s], hs[s], r * m, s * m, CR2)
+                     for s in ring_order(p, r)]
+            out, deg = tiles[0]
+            for o, d in tiles[1:]:
+                out, deg = out + o, deg + d
+            outs.append(out)
+            degs.append(deg)
+            for s, (o, _) in enumerate(tiles):
+                parts[s].append(o)
+        return (torch.cat(outs, dim=1), torch.cat(degs, dim=1),
+                [torch.cat(q, dim=1) for q in parts])
+
+    out, deg, parts = ring_adj(k2.adjacency_matmul_block, hb)
+    want, want_deg, _ = ring_adj(k2.adjacency_matmul_block_reference, hb)
+    compare_deg(deg, want_deg)
+    adj.check(out, want)
+    adj.check(_pool(out, deg, True), _pool(want, want_deg, True))
+    plain, plain_deg = k2.adjacency_matmul_block_reference(x, x, h, 0, 0, CR2)
+    compare_deg(deg, plain_deg)
+    k2_to_whole = hold_to_partials("K2 ring against the whole swarm", out, plain, parts,
+                                   RING_TOL)
+    backward = k2.backward_launches
+    grads = []
+    for fn in (k2.adjacency_matmul_block, k2.adjacency_matmul_block_reference):
+        leaves = [t.detach().clone().requires_grad_() for t in hb]
+        (ring_adj(fn, leaves)[0] * co).sum().backward()
+        grads.append(torch.cat([t.grad for t in leaves], dim=1))
+        if fn is k2.adjacency_matmul_block:
+            backward = k2.backward_launches - backward
+    if backward != p * p * k2.launches_for(6):
+        raise AssertionError(f"{backward} K2 backward launches for {p * p} tiles")
+    adj.check(*grads)
+
+    # the tiles' cost beside one launch over the whole swarm
+    core_parts = lambda: ring_sums(ring_parts(k1.flocking_sums_block, "core"))  # noqa: E731
+    return {"P": p, "B": b, "N": n, "m": m, "k1_worst": worst, "k1_ring_to_whole": to_whole,
+            "k2_max_rel": adj.rel, "k2_max_abs_err": adj.abs,
+            "k2_ring_to_whole": k2_to_whole, "k2_backward_launches": backward,
+            "k1_ring_tiles_ms": time_ms(core_parts),
+            "k1_gather_tiles_ms": time_ms(lambda: gather_sums("core")),
+            "k1_whole_ms": time_ms(lambda: k1.flocking_sums_block(x, x, 0, 0, cr, cr2, "core")),
+            "k2_ring_tiles_ms": time_ms(lambda: ring_adj(k2.adjacency_matmul_block, hb)),
+            "k2_whole_ms": time_ms(lambda: k2.adjacency_matmul_block(x, x, h, 0, 0, CR2))}
+
+
+def phase_sharded_rollout(device: str, n_envs: int, n_steps: int) -> dict:
+    """Phase 31: ``agent_sharded_rollout`` at FlockingLarge-v0's registered
+    size on a 1 x 1 mesh, in both modes.  K1 launches: the reset's draws,
+    one pass for the first controller, one a step.  The reset equals
+    ``LargeFlockingEnv.reset_env`` from the same generator; the first step
+    (``flocking_step_sharded``) equals the env's controller and integrator
+    (the sharded step integrates the controller's output as it is, as the
+    JAX package's does) and the env's observation, and the plain pipeline
+    on the host (first 2 envs)."""
+    import dataclasses
+
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs.flocking import _instant_cost, _integrate
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.parallel import agent_shard as ash
+
+    env, params = gft.make("FlockingLarge-v0")
+    mesh = ash.make_flock_mesh(1, 1)
+    ap = mesh.get_group("ap")
+    res = {"N": params.n_agents, "B": n_envs, "steps": n_steps}
+    finals = {}
+    for mode in ("ring", "allgather"):
+        gen = torch.Generator(device=device).manual_seed(SEED + 31)
+        gen_state = gen.get_state()
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        xf, mean_r = ash.agent_sharded_rollout(params, gen, n_envs, n_steps, mesh, mode)
+        _sync()
+        seconds = time.perf_counter() - t0
+        launches, tries = k1.launches, ash.last_reset_tries
+        if launches != tries + 1 + n_steps or launch_total() != launches:
+            raise AssertionError(f"{mode}: K1 {launches} launches ({launch_total()} in all) "
+                                 f"for {tries} reset draws + 1 + {n_steps} steps")
+        check_all_finite(f"sharded rollout ({mode})", xf, mean_r)
+        finals[mode] = xf
+
+        replay = torch.Generator(device=device)
+        replay.set_state(gen_state)
+        x0 = ash.flocking_reset_sharded(replay, params, n_envs, ap, mode)
+        replay.set_state(gen_state)
+        state0, _ = env.reset_env(replay, params, n_envs)
+        hold("sharded reset", x0, state0.x, 0, "exact")
+        x1, values, reward = ash.flocking_step_sharded(x0, params, ap, mode)
+        x1_env = _integrate(state0.x, env.controller(state0, params), params.dt)
+        # the observations at the sharded step's state (1/r^4 terms of close
+        # pairs amplify the integration's rounding)
+        values_env, deg_env = env._obs(dataclasses.replace(state0, x=x1), params)
+        head = host_head(x0, 2)
+        u_host = k1.turner_controller_large(head, params.comm_radius, params.comm_radius2,
+                                            params.action_scalar)
+        s_host = k1.flocking_sums_block_reference(host_head(x1, 2), host_head(x1, 2), 0, 0,
+                                                  params.comm_radius, params.comm_radius2,
+                                                  "core")
+        res[mode] = {
+            "k1_launches": launches, "reset_tries": tries, "seconds": seconds,
+            "agent_steps_per_s": n_envs * n_steps * params.n_agents / seconds,
+            "mean_reward": float(mean_r),
+            "first_step": {
+                "x_vs_env": hold("first step's state", x1, x1_env, STATE_ATOL, "abs"),
+                "values_vs_env": hold("first step's values", values, values_env, SUM_TOL),
+                "reward_vs_env": hold("first step's reward", reward, _instant_cost(x1),
+                                      U_ATOL, "abs"),
+                "x_vs_host": hold("first step's state on the host", host_head(x1, 2),
+                                  _integrate(head, u_host, params.dt), STATE_ATOL, "abs"),
+                "values_vs_host": hold("first step's values on the host",
+                                       host_head(values, 2), s_host[..., 0:6], SUM_TOL),
+            },
+        }
+        compare_deg(ash.flocking_features_sharded(x1, params.comm_radius, params.comm_radius2,
+                                                  ap, mode)[1], deg_env)
+    res["ring_vs_allgather_rel"] = hold("ring against all-gather", finals["ring"],
+                                        finals["allgather"], SUM_TOL)
+    res["k1_launches"] = res["ring"]["k1_launches"] + res["allgather"]["k1_launches"]
+    return res
+
+
+def phase_sharded_training(device: str, first_loss14: float, world) -> dict:
+    """Phase 32: the sharded train steps at world size 1.  (a)
+    ``make_agent_sharded_train_step`` on phase 14's first batch (same seed:
+    4 envs x 4 steps), 5 updates: K2 exactly 2 launches an update and none
+    for a backward (the features are inputs); the first loss equals phase
+    14's within 1e-5.  (b) the data-parallel flocking step at phase 16's
+    size, (c) the sharded DAGGER iteration at phase 20's, (d) the
+    data-parallel coverage step at phase 17's, 2 steps each: K1 once a reset
+    draw, K5 once a collect step, the weights moved, the losses finite."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.models import AggregationGNN, EdgeGraphNet
+    from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import rowmin as k5
+    from gym_flock_tpu_torch.parallel import (CoverageImitationTrainer, DaggerTrainer,
+                                              FlockingImitationTrainer,
+                                              LargeFlockingImitationTrainer)
+    from gym_flock_tpu_torch.parallel.dagger import make_sharded_iteration
+    from gym_flock_tpu_torch.parallel.train_coverage import make_sharded_train_step
+
+    res = {}
+    env, params = gft.make("FlockingLarge-v0")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trainer = LargeFlockingImitationTrainer(env, params, device=device)
+    trainer.init(gen)
+    batch = trainer.collect(gen, 4, 4)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    step = trainer.make_agent_sharded_train_step()
+    _sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = [float(step(batch)) for _ in range(5)]
+    _sync()
+    update_s = (time.perf_counter() - t0) / 5
+    if k2.launches != 2 * 5 or k2.backward_launches != 0 or launch_total() != k2.launches:
+        raise AssertionError(f"K2 {k2.launches} launches ({k2.backward_launches} backward, "
+                             f"{launch_total()} in all) for 5 agent-sharded updates")
+    loss_rel = abs(losses[0] - first_loss14) / abs(first_loss14)
+    if not loss_rel < 1e-5:
+        raise AssertionError(f"agent-sharded first loss {losses[0]} against phase 14's "
+                             f"{first_loss14}: relative {loss_rel:.3e}")
+    check_training(losses, before, trainer.model)
+    res["agent_sharded"] = {"losses": losses, "first_loss_vs_phase14_rel": loss_rel,
+                            "k2_launches": k2.launches, "k2_backward_launches": 0,
+                            "update_ms": update_s * 1e3}
+
+    def run_steps(name, model, step_fn, expect):
+        before = [p.detach().clone() for p in model.parameters()]
+        gen = torch.Generator(device=device).manual_seed(SEED + 32)
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = [float(step_fn(gen, k)) for k in range(2)]
+        _sync()
+        seconds = (time.perf_counter() - t0) / 2
+        counts = {"k1": k1.launches, "k2": k2.launches, "k5": k5.launches}
+        if counts != expect():
+            raise AssertionError(f"{name}: launches {counts}, want {expect()}")
+        check_training(losses, before, model)
+        res[name] = {"losses": losses, "seconds_a_step": seconds, **counts}
+
+    renv, rparams = gft.make("FlockingRelative-v0")
+    draws = []
+
+    def count_draws(fn):
+        def run(gen, k):
+            out = fn(gen, k)
+            draws.append(renv.last_reset_tries)
+            return out
+        return run
+
+    ftr = FlockingImitationTrainer(renv, rparams, device=device)
+    ftr.init(torch.Generator(device=device).manual_seed(SEED))
+    dp_step = ftr.make_sharded_train_step(n_envs=1024, n_steps=8)
+    run_steps("dp_flocking", ftr.model, count_draws(lambda gen, k: dp_step(gen)),
+              lambda: {"k1": sum(draws), "k2": 0, "k5": 0})
+
+    draws.clear()
+    dgen = torch.Generator(device=device).manual_seed(SEED)
+    dtr = DaggerTrainer(renv, rparams, capacity=8192, device=device,
+                        model=AggregationGNN(k_hops=4, hidden=(128, 128), generator=dgen,
+                                             device=device))
+    d_step, d_init = make_sharded_iteration(dtr, n_envs=8, n_steps=16, n_grad_steps=4)
+    d_init(dgen)
+    run_steps("sharded_dagger", dtr.model,
+              count_draws(lambda gen, k: d_step(gen, dtr.beta_decay ** k)),
+              lambda: {"k1": sum(draws), "k2": 0, "k5": 0})
+    res["sharded_dagger"]["filled"] = dtr.state.filled
+
+    cenv, cparams = world
+    cgen = torch.Generator(device=device).manual_seed(SEED)
+    ctr = CoverageImitationTrainer(cenv, cparams, device=device,
+                                   model=EdgeGraphNet(64, 6, generator=cgen, device=device))
+    ctr.init(cgen)
+    c_step = make_sharded_train_step(ctr, n_envs=8, n_steps=16)
+    run_steps("dp_coverage", ctr.model, lambda gen, k: c_step(gen),
+              lambda: {"k1": 0, "k2": 0, "k5": 2 * 16})
+    res["k1_launches"] = res["dp_flocking"]["k1"] + res["sharded_dagger"]["k1"]
+    res["k5_launches"] = res["dp_coverage"]["k5"]
+    res["k2_launches"] = res["agent_sharded"]["k2_launches"]
+    return res
+
+
+def ulp_gap(got, want) -> int:
+    """The largest distance in float64 ulps between two tensors of the same
+    shape (0 where both are the same NaN or infinity)."""
+    a, b = got.cpu().double().numpy(), want.cpu().double().numpy()
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {a.shape} against {b.shape}")
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    if same.all():
+        return 0
+
+    def ordered(v):
+        i = v.view(np.int64)
+        return np.where(i < 0, np.int64(-(2 ** 63)) - i, i)
+
+    ia, ib = ordered(a[~same]), ordered(b[~same])
+    return int(max(abs(int(p) - int(q)) for p, q in zip(ia.tolist(), ib.tolist())))
+
+
+def phase_parity(device: str, n_steps: int) -> dict:
+    """Phase 33: ``parity_exact`` at float64 on the card against the host.
+    FlockingRelative-v0 (N=50, from ``compat.parity.reference_flocking_reset``
+    of numpy seed 7) free-running for ``n_steps`` expert steps: the actions,
+    states, observations, networks and rewards must be bitwise the host's.
+    Shepherding-v0 (from ``reference_shepherding_reset(5)``, headings drawn
+    with numpy seed 6) and Mapping-v0 (a float64 state drawn on the host,
+    its in-radius targets retired as the reset retires them):
+    each step from the card's state is repeated on the host, and their
+    largest ulp gap is reported (the card's f64 cos/sin/atan2 are CUDA's,
+    not the host C library's)."""
+    import dataclasses
+
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.compat import parity
+    from gym_flock_tpu_torch.envs.mapping import MappingState, _mapping_helpers
+
+    res = {}
+    n = 50
+    x0 = parity.reference_flocking_reset(n, math.sqrt(n), 5.0, 0.81,
+                                         rng=np.random.RandomState(7))
+    env, params = gft.make("FlockingRelative-v0", n_agents=n, parity_exact=True)
+    card = env.init_state(torch.from_numpy(x0)[None].to(device), params)
+    host = env.init_state(torch.from_numpy(x0)[None], params)
+    t0 = time.perf_counter()
+    for t in range(n_steps):
+        uc, uh = env.controller(card, params), env.controller(host, params)
+        card, oc, rc, _, _ = env.step_env(None, card, uc, params)
+        host, oh, rh, _, _ = env.step_env(None, host, uh, params)
+        for what, a, b in (("action", uc, uh), ("state", card.x, host.x), ("values", oc[0], oh[0]),
+                           ("network", oc[1], oh[1]), ("reward", rc, rh)):
+            if a.dtype != torch.float64 or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"parity FlockingRelative-v0 step {t}: the card's {what} "
+                                     f"is {ulp_gap(a, b)} ulp from the host's")
+    res["FlockingRelative-v0"] = {"N": n, "steps": n_steps, "max_ulp": 0,
+                                  "seconds": time.perf_counter() - t0}
+
+    def locked(name, env, card_params, host_params, state):
+        """Each step from the card's state, again on the host: the largest
+        ulp gaps."""
+        gaps = {"action": 0, "state": 0, "obs": 0, "reward": 0}
+        for _ in range(n_steps):
+            hs = host_head(state, None)
+            uc, uh = env.controller(state, card_params), env.controller(hs, host_params)
+            state, oc, rc, _, _ = env.step_env(None, state, uc, card_params)
+            hs2, oh, rh, _, _ = env.step_env(None, hs, uh, host_params)
+            for what, a, b in (("action", uc, uh), ("state", state.x, hs2.x),
+                               ("obs", torch.cat([o.flatten(1) for o in oc], 1),
+                                torch.cat([o.flatten(1) for o in oh], 1)), ("reward", rc, rh)):
+                gaps[what] = max(gaps[what], ulp_gap(a, b))
+        check_all_finite(name, state.x)
+        res[name] = {"steps": n_steps, "max_ulp": gaps}
+
+    sx = parity.reference_shepherding_reset(5)
+    sx[:, 2] = np.random.RandomState(6).uniform(-np.pi, np.pi, size=(sx.shape[0],))
+    senv, sp = gft.make("Shepherding-v0", parity_exact=True)
+    locked("Shepherding-v0", senv, sp, sp,
+           senv.init_state(torch.from_numpy(sx)[None].to(device), sp))
+
+    menv, mp = gft.make("Mapping-v0", parity_exact=True, device=device)
+    mp_host = dataclasses.replace(mp, target_x=mp.target_x.cpu())
+    gen = torch.Generator().manual_seed(SEED)
+    half = torch.tensor([mp.px_max, mp.py_max, mp.v_max, mp.v_max], dtype=torch.float64)
+    x = (2.0 * torch.rand(1, mp.n_agents, 4, generator=gen, dtype=torch.float64) - 1.0) * half
+    unobserved = torch.ones(1, mp.n_targets, dtype=torch.bool)
+    _, _, obs_t, newly, _ = _mapping_helpers(x, unobserved, mp_host)
+    mstate = MappingState(time=torch.zeros(1, dtype=torch.int32, device=device),
+                          x=x.to(device), unobserved=(unobserved & ~newly).to(device),
+                          last_obs_target=obs_t.to(device))
+    locked("Mapping-v0", menv, mp, mp_host, mstate)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -3142,6 +3651,40 @@ def main() -> int:
     print(f"phase 28 AirSim bridges {BRIDGE_STEPS} steps, card against host: "
           + json.dumps(t28))
 
+    try:
+        # 29. the process group: NCCL at world size 1
+        t29 = phase_process_group(device, bank_cache.name)
+        _sync()
+        print("phase 29 torch.distributed NCCL world size 1: " + json.dumps(t29))
+
+        # 30. the ring's K1 and K2 tiles at P=4 on one card
+        t30 = phase_ring_tiles(device, RING_P)
+        _sync()
+        print(f"phase 30 ring tiles P={RING_P} FlockingLarge-v0 B=16 N=4096: "
+              + json.dumps(t30))
+
+        # 31. the agent-sharded rollout
+        t31 = phase_sharded_rollout(device, n_envs=16, n_steps=16)
+        _sync()
+        print("phase 31 agent_sharded_rollout 1x1 mesh B=16 N=4096 16 steps: "
+              + json.dumps(t31))
+
+        # 32. the sharded train steps
+        t32 = phase_sharded_training(device, t14["losses"][0], world)
+        _sync()
+        print("phase 32 sharded train steps (agent-sharded, DP flocking, DAGGER, DP "
+              "coverage): " + json.dumps(t32))
+
+        # 33. the parity mode on the card against the host
+        t33 = phase_parity(device, PARITY_STEPS)
+        _sync()
+        print(f"phase 33 parity_exact float64 {PARITY_STEPS} steps, card against host: "
+              + json.dumps(t33))
+    finally:
+        # NCCL's watchdog keeps a process whose group was not destroyed alive
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
@@ -3154,17 +3697,20 @@ def main() -> int:
         "launches": (large["launches"] + rel["launches"] + sr["k1_launches"]
                      + t14["k1_collect_launches"] + t15["k1_launches"] + t16["k1_launches"]
                      + t20["k1_launches"] + t21["k1_launches"] + t25["k1_launches"]
-                     + t27["k1_launches"]),
+                     + t27["k1_launches"] + t31["k1_launches"] + t32["k1_launches"]),
         "max_abs_err": max(k["worst"]["abs"], k3["k1_dense_a"]["abs"],
                            sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"],
                            t21["k1_vs_plain"]["abs"], t25["k1_vs_plain"]["abs"],
-                           t27["legacy"]["FlockingRelative-v0"]["k1_vs_plain"]["abs"]),
+                           t27["legacy"]["FlockingRelative-v0"]["k1_vs_plain"]["abs"],
+                           t30["k1_worst"]["abs"]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": None,
         "timings": k["timings"] + [t25["k1_timing"]],
+        "ring_tiles": {key: t30[key] for key in ("P", "k1_ring_tiles_ms", "k1_gather_tiles_ms",
+                                                 "k1_whole_ms")},
     }, {
         "name": "rowmin",
         "route": "cuda",
@@ -3172,7 +3718,7 @@ def main() -> int:
         "replaces": "gym_flock_tpu/ops/rowmin.py:72",
         "launches": (xf["launches"] + cv["launches"] + t17["k5_launches"]
                      + t17["eval_k5_launches"] + t18["k5_launches"] + t19["k5_launches"]
-                     + t26["k5_launches"] + t27["k5_launches"]),
+                     + t26["k5_launches"] + t27["k5_launches"] + t32["k5_launches"]),
         "max_abs_err": k5r["max_abs_err"],
         "ms": k5_big["ms"],
         "plain_ms": k5_big["plain_ms"],
@@ -3198,16 +3744,19 @@ def main() -> int:
         "route": "cuda",
         "source": "gym_flock_tpu_torch/csrc/adj_matmul.cu",
         "replaces": "gym_flock_tpu/ops/pallas_flocking.py:488",
-        "launches": t14["k2_launches"] + t15["k2_launches"] + t25["k2_launches"],
+        "launches": (t14["k2_launches"] + t15["k2_launches"] + t25["k2_launches"]
+                     + t32["k2_launches"]),
         "backward_launches": t14["k2_backward_launches"],
-        "checked_backward_launches": a2["backward_launches"],
-        "max_abs_err": max(a2["max_abs_err"], t25["aggregation_vs_plain"]["abs"]),
+        "checked_backward_launches": a2["backward_launches"] + t30["k2_backward_launches"],
+        "max_abs_err": max(a2["max_abs_err"], t25["aggregation_vs_plain"]["abs"],
+                           t30["k2_max_abs_err"]),
         "ms": a2["timings"][0]["ms"],
         "plain_ms": a2["timings"][0]["plain_ms"],
         "bound_ms": a2["timings"][0]["bound_ms"],
         "bound_by": a2["timings"][0]["bound_by"],
         "library_ms": None,
         "timings": a2["timings"] + [t25["k2_timing"]],
+        "ring_tiles": {key: t30[key] for key in ("P", "k2_ring_tiles_ms", "k2_whole_ms")},
     }, {
         "name": "sparse_adj",
         "route": "cuda",

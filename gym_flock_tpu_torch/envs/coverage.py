@@ -643,7 +643,7 @@ def _cached_bank(cache_key, build):
     t0 = time.perf_counter()
     if path.exists():
         try:
-            bank = prepare_bank(cg.load_graph_bank(str(path)))
+            bank = prepare_bank(cg.load_graph_bank(str(path), device="cpu"))
             last_bank_timing.update(source="disk", read_seconds=time.perf_counter() - t0)
             return bank
         except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):

@@ -410,9 +410,10 @@ def build_graph_spec(
     )
 
 
-def build_graph_bank(specs: List[GraphSpec], device="cpu"):
-    """Stack GraphSpecs into a dict of tensors on ``device`` with a leading
-    bank axis; the env gathers a graph by bank index."""
+def build_graph_bank(specs: List[GraphSpec], device="cuda"):
+    """Stack GraphSpecs into a dict of tensors on ``device`` (default the
+    card; pass ``"cpu"`` for the host; without a card it raises) with a
+    leading bank axis; the env gathers a graph by bank index."""
 
     def stack(field):
         return torch.from_numpy(np.stack([getattr(s, field) for s in specs])).to(device)
@@ -643,9 +644,10 @@ def save_graph_bank(path: str, bank) -> None:
             os.remove(tmp)
 
 
-def load_graph_bank(path: str, device="cpu") -> dict:
+def load_graph_bank(path: str, device="cuda") -> dict:
     """A bank written by :func:`save_graph_bank` (or the JAX package's), as
-    tensors on ``device``, bfloat16 keys restored.  Raises ``ValueError``
+    tensors on ``device`` (default the card; pass ``"cpu"`` for the host;
+    without a card it raises), bfloat16 keys restored.  Raises ``ValueError``
     when the file has no ``__bank_schema__`` or another schema."""
     with np.load(path) as data:
         if "__bank_schema__" not in data.files:

@@ -49,6 +49,8 @@ __all__ = [
     "LargeFlockingEnv",
     "SparseFlockingEnv",
     "flocking_features",
+    "flocking_features_exact",
+    "turner_controller_exact",
     "flocking_obs_expert_pass",
     "turner_controller",
     "turner_potential_grad",
@@ -63,11 +65,7 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class FlockingParams:
     """Parameters of the flocking family; defaults mirror reference
-    flocking_relative.py:27-64.
-
-    Left out: ``parity_exact`` (the JAX package's bit-exact parity mode,
-    not ported yet).
-    """
+    flocking_relative.py:27-64."""
 
     n_agents: int = 100
     max_steps: int = 1000
@@ -86,6 +84,10 @@ class FlockingParams:
     # candidate table are rebuilt only when an agent moved > skin/2 since the
     # last build).  None resolves to comm_radius; <= 0 rebuilds every step.
     verlet_skin: float | None = None
+    # bit-exact parity mode: the observation, the expert and the reward
+    # follow the reference's NumPy op order (flocking_features_exact); a
+    # correctness mode at float64, not the fast path
+    parity_exact: bool = False
     comm_radius: float = 0.9
     dt: float = 0.01
     v_max: float = 5.0
@@ -305,6 +307,143 @@ def _integrate(x: torch.Tensor, u: torch.Tensor, dt,
 
 
 # =============================================================================
+# Bit-exact parity mode (the reference's op order)
+# =============================================================================
+#
+# The functions above may reorder float arithmetic (shared reciprocals, the
+# reductions' own order).  These mirror the reference's NumPy sequence
+# (flocking_relative.py:91-226) operation for operation, so that at float64
+# a trajectory equals the reference's and the JAX package's parity mode bit
+# for bit.  Eager PyTorch rounds every operation, so no a*b+c is contracted
+# into an FMA (the JAX package's ``_rnd`` barriers have no counterpart);
+# what must be written out are the reduction orders and the divisions:
+#   * np.sum over a non-inner axis adds one slice at a time, in order
+#     (:func:`_seq_sum_cols`, :func:`_seq_sum_rows`); over the contiguous
+#     inner axis it sums pairwise, 8-way unrolled (:func:`_np_pairwise_sum`);
+#   * CUDA divides by a host scalar through its rounded reciprocal, so the
+#     divisor goes to the device as a tensor (:func:`_div`);
+#   * the CPU's vectorised sqrt/cos/sin/atan2 are not the C library's (they
+#     differ by an ulp on some inputs), so on the host these come from NumPy,
+#     whose ufuncs are the reference's own (:func:`_libm`).  On the card
+#     they are CUDA's: shepherding and mapping report their ulp gap there.
+# A sequential sum is one launch per term: a correctness mode, not the fast
+# path.
+
+
+def _seq_sum_cols(a: torch.Tensor) -> torch.Tensor:
+    """``[..., N, M] -> [..., N]``: the sum over the last axis, adding one
+    column at a time from zero (np.add.reduce's order on a non-inner axis)."""
+    acc = torch.zeros_like(a[..., 0])
+    for j in range(a.shape[-1]):
+        acc = acc + a[..., j]
+    return acc
+
+
+def _seq_sum_rows(a: torch.Tensor) -> torch.Tensor:
+    """``[..., N, C] -> [..., C]``: the sum over axis -2, one row at a time."""
+    acc = torch.zeros_like(a[..., 0, :])
+    for i in range(a.shape[-2]):
+        acc = acc + a[..., i, :]
+    return acc
+
+
+def _np_pairwise_sum(v: torch.Tensor) -> torch.Tensor:
+    """``[..., n] -> [...]`` in NumPy's order for a contiguous inner-axis sum:
+    below 8 terms in sequence, up to 128 in eight interleaved partial sums
+    combined as a tree, above that the two halves (split at a multiple of 8)
+    recursively (numpy's ``pairwise_sum``)."""
+    n = v.shape[-1]
+    if n < 8:
+        s = v[..., 0]
+        for i in range(1, n):
+            s = s + v[..., i]
+        return s
+    if n <= 128:
+        r = [v[..., i] for i in range(8)]
+        i = 8
+        while i + 8 <= n:
+            for j in range(8):
+                r[j] = r[j] + v[..., i + j]
+            i += 8
+        s = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]))
+        while i < n:
+            s = s + v[..., i]
+            i += 1
+        return s
+    ns = n // 2
+    ns -= ns % 8
+    return _np_pairwise_sum(v[..., :ns]) + _np_pairwise_sum(v[..., ns:])
+
+
+def _div(a: torch.Tensor, n) -> torch.Tensor:
+    """``a / n`` as a true division on every device (module note above)."""
+    return a / torch.tensor(n, dtype=a.dtype, device=a.device)
+
+
+_NUMPY_UFUNCS = {torch.sqrt: "sqrt", torch.cos: "cos", torch.sin: "sin", torch.atan2: "arctan2"}
+
+
+def _libm(fn, *args: torch.Tensor) -> torch.Tensor:
+    """``fn(*args)`` (``torch.sqrt``, ``cos``, ``sin`` or ``atan2``): NumPy's
+    ufunc on the host, the device's own on the card (module note above)."""
+    if args[0].device.type != "cpu":
+        return fn(*args)
+    import numpy as np
+
+    out = getattr(np, _NUMPY_UFUNCS[fn])(*(a.detach().numpy() for a in args))
+    return torch.from_numpy(np.asarray(out))
+
+
+def flocking_features_exact(x: torch.Tensor, comm_radius2,
+                            obstacle_mask: torch.Tensor | None = None):
+    """:func:`flocking_features` in the reference's op order
+    (flocking_relative.py:111-134): direct divisions (``dx / (r2*r2)``), the
+    mean-pooled adjacency by element-wise division, sequential neighbour
+    sums."""
+    dx, dy, dvx, dvy, r2 = _pairwise_channels(x, obstacle_mask)
+    adj = (r2 < comm_radius2).to(x.dtype)
+    deg = adj.sum(dim=-1)  # sums of 0/1: exact in any order
+    deg = torch.where(deg == 0.0, 1.0, deg)
+    adj_mean = adj / deg[..., None]
+    r4 = r2 * r2
+    chans = torch.stack((dvx, dx / r4, dx / r2, dvy, dy / r4, dy / r2), dim=-3)
+    values = _seq_sum_cols(chans * adj[..., None, :, :]).movedim(-2, -1)
+    return values, adj, adj_mean, r2
+
+
+def turner_controller_exact(x: torch.Tensor, params: FlockingParams,
+                            centralized: bool | None = None,
+                            obstacle_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`turner_controller` in the reference's op order
+    (flocking_relative.py:194-226): the potential gradient as two divisions,
+    sequential sums of the stacked terms."""
+    if centralized is None:
+        centralized = params.centralized
+    dx, dy, dvx, dvy, r2 = _pairwise_channels(x, obstacle_mask)
+    r4 = r2 * r2
+    gx = torch.where(r2 > params.comm_radius, 0.0, -2.0 * (dx / r4) + 2.0 * (dx / r2))
+    gy = torch.where(r2 > params.comm_radius, 0.0, -2.0 * (dy / r4) + 2.0 * (dy / r2))
+    chans = torch.stack((dvx, dvy, gx, gy), dim=-3)
+    if not centralized:
+        chans = chans * (r2 < params.comm_radius2).to(x.dtype)[..., None, :, :]
+    s_dvx, s_dvy, s_gx, s_gy = _seq_sum_cols(chans).unbind(dim=-2)
+    controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
+    return _div(controls.clamp(-10.0, 10.0), params.action_scalar)
+
+
+def _instant_cost_exact(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_instant_cost` in np.var's order (flocking_relative.py:145-147):
+    a sequential mean over the agents, the squared residuals, a sequential
+    mean of those."""
+    v = x[..., 2:4]
+    n = v.shape[-2]
+    m = _div(_seq_sum_rows(v), n)
+    d = v - m[..., None, :]
+    var = _div(_seq_sum_rows(d * d), n)
+    return -1.0 * (var[..., 0] + var[..., 1])
+
+
+# =============================================================================
 # Envs
 # =============================================================================
 
@@ -326,7 +465,8 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
     # ------------------------------------------------------------ helpers
 
     def _obs(self, state: FlockingState, params: FlockingParams):
-        values, adj, adj_mean, _ = flocking_features(
+        features = flocking_features_exact if params.parity_exact else flocking_features
+        values, adj, adj_mean, _ = features(
             state.x, params.comm_radius2, self._obstacle_mask(params, state.x)
         )
         return values, (adj_mean if params.mean_pooling else adj)
@@ -414,15 +554,15 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
                        self._integration_mask(params, state.x))
         new_state = dataclasses.replace(state, x=x, time=state.time + 1)
         obs = self._obs(new_state, params)
-        reward = _instant_cost(x)
+        reward = (_instant_cost_exact if params.parity_exact else _instant_cost)(x)
         done = new_state.time >= params.max_steps
         return new_state, obs, reward, done, {}
 
     def controller(self, state: FlockingState, params: FlockingParams, generator=None,
                    centralized=None):
         """The Turner expert; deterministic, so ``generator`` is not used."""
-        return turner_controller(state.x, params, centralized,
-                                 self._obstacle_mask(params, state.x))
+        ctrl = turner_controller_exact if params.parity_exact else turner_controller
+        return ctrl(state.x, params, centralized, self._obstacle_mask(params, state.x))
 
     # ---------------------------------------------------- fused expert rollout
 

@@ -29,6 +29,7 @@ several newly observed targets is credited once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -37,6 +38,7 @@ import torch
 
 from gym_flock_tpu_torch.core.env import Env, EnvState
 from gym_flock_tpu_torch.core.spaces import Box, MultiDiscrete
+from gym_flock_tpu_torch.envs.flocking import _div, _libm, _np_pairwise_sum
 
 __all__ = [
     "MappingParams",
@@ -61,11 +63,7 @@ def make_target_grid(n_agents: int, px_max: float, py_max: float) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class MappingParams:
-    """Defaults mirror reference old/mapping.py:24-92.
-
-    Left out: ``parity_exact`` (the JAX package's bit-exact parity mode,
-    not ported yet).
-    """
+    """Defaults mirror reference old/mapping.py:24-92."""
 
     n_agents: int = 100
     nearest_agents: int = 7
@@ -80,6 +78,12 @@ class MappingParams:
     observe_self_vel: bool = False
     observe_neighbors: bool = True
     discrete_actions: bool = False
+    # bit-exact parity mode: the integration, the distances, the traveled
+    # distance's sum (NumPy's pairwise order) and the expert follow the
+    # reference's op order at float64 (envs.flocking's parity note); the
+    # target lattice is then float64 too.  The selection equals the
+    # reference's wherever distances do not tie
+    parity_exact: bool = False
     dt: float = 0.1
     v_max: float = 5.0
     max_accel: float = 1.0  # max_vel for the single-integrator variants
@@ -89,7 +93,8 @@ class MappingParams:
     py_max: float = 100.0
     dist_penalty: float = 1.0  # 0.1 for the per-agent-reward variants
     reward_scale: float = 10.0  # 1.0 for the per-agent-reward variants
-    # [T, 2] f32 target lattice (T = n_agents^2) on the env's device
+    # [T, 2] target lattice (T = n_agents^2) on the env's device, f32 (f64
+    # in parity mode)
     target_x: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False)
 
     @property
@@ -101,12 +106,17 @@ class MappingParams:
         return self.obs_rad * self.obs_rad
 
 
+def _lattice_dtype(params: MappingParams) -> torch.dtype:
+    return torch.float64 if params.parity_exact else torch.float32
+
+
 def with_target_grid(params: MappingParams, device) -> MappingParams:
     """``params`` with ``target_x`` the lattice of its ``n_agents`` and arena
-    on ``device`` (the card raises where there is none)."""
+    on ``device`` (the card raises where there is none), float32 (float64
+    in parity mode)."""
     grid = make_target_grid(params.n_agents, params.px_max, params.py_max)
     return dataclasses.replace(
-        params, target_x=torch.as_tensor(grid, dtype=torch.float32, device=device))
+        params, target_x=torch.as_tensor(grid, dtype=_lattice_dtype(params), device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,13 +260,19 @@ class MappingEnv(Env[MappingParams, MappingState]):
             py = x[..., 1] + u[..., 1] * dt
             vx, vy = x[..., 2], x[..., 3]
         new_x = torch.stack((px, py, vx, vy), dim=-1)
-        dist = torch.sqrt((px - x[..., 0]) ** 2 + (py - x[..., 1]) ** 2)  # [B, N]
+        sqrt = functools.partial(_libm, torch.sqrt) if params.parity_exact else torch.sqrt
+        dist = sqrt((px - x[..., 0]) ** 2 + (py - x[..., 1]) ** 2)  # [B, N]
 
         values, network, obs_target, newly, credit = _mapping_helpers(
             new_x, state.unobserved, params)
         new_unobserved = state.unobserved & ~newly
         if params.per_agent_reward:
             reward = credit - params.dist_penalty * dist
+        elif params.parity_exact:
+            # the reference's order (old/mapping.py:161-165): the integer
+            # count, and the distances summed in NumPy's pairwise order
+            reward = (params.reward_scale * newly.sum(dim=-1).to(x.dtype)
+                      - params.dist_penalty * _np_pairwise_sum(dist))
         else:
             reward = (params.reward_scale * newly.sum(dim=-1).to(x.dtype)
                       - params.dist_penalty * dist.sum(dim=-1))
@@ -269,6 +285,8 @@ class MappingEnv(Env[MappingParams, MappingState]):
     def controller(self, state: MappingState, params: MappingParams, generator=None):
         """Greedy: fly at the nearest unobserved target as the last
         observation pass saw it (old/mapping.py:217, 224-232)."""
+        if params.parity_exact:
+            return _div(-1.0 * state.last_obs_target[..., 0:2], params.action_scalar)
         return -1.0 * state.last_obs_target[..., 0:2] / params.action_scalar
 
     def observation_space(self, params: MappingParams):
@@ -364,7 +382,7 @@ def mapping_factory(cls):
             params = with_target_grid(params, device)
         else:
             params = dataclasses.replace(params, target_x=torch.as_tensor(
-                params.target_x, dtype=torch.float32, device=device))
+                params.target_x, dtype=_lattice_dtype(params), device=device))
         return env, params
 
     return factory

@@ -18,6 +18,7 @@ nonzero" flags are equal, not just the pair with itself (:253-254).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -25,6 +26,7 @@ import torch
 
 from gym_flock_tpu_torch.core.env import Env, EnvState
 from gym_flock_tpu_torch.core.spaces import Box
+from gym_flock_tpu_torch.envs.flocking import _div, _libm, _seq_sum_cols
 
 __all__ = ["ShepherdingParams", "ShepherdingState", "ShepherdingEnv", "shepherding_factory"]
 
@@ -37,15 +39,17 @@ _VLR_NONE = (0.9998, 0.8520)
 
 @dataclasses.dataclass(frozen=True)
 class ShepherdingParams:
-    """Defaults mirror reference shepherding.py:16-70.
-
-    Left out: ``parity_exact`` (the JAX package's bit-exact parity mode,
-    not ported yet).
-    """
+    """Defaults mirror reference shepherding.py:16-70."""
 
     n_sheep: int = 20
     n_shepherds: int = 10
     max_steps: int = 1000
+    # bit-exact parity mode: the step, the observation, the reward and the
+    # expert follow the reference's NumPy op order at float64
+    # (envs.flocking's parity note).  The expert's bearings go through
+    # atan2, whose 1-ulp differences between libraries could flip a branch
+    # only at a bearing within an ulp of its 2 or 5 degree threshold
+    parity_exact: bool = False
     dt: float = 0.01
     v_max: float = 2.0
     action_scalar: float = 5.0
@@ -85,8 +89,11 @@ def _pairwise_r2(x: torch.Tensor):
     return dx, dy, dx * dx + dy * dy
 
 
-def _wrap(a: torch.Tensor) -> torch.Tensor:
+def _wrap(a: torch.Tensor, exact: bool = False) -> torch.Tensor:
     """The reference's ``_wrapToPi`` (:236-238): 0 for an exactly zero angle."""
+    if exact:
+        return torch.where(a == 0.0, 0.0, _libm(torch.atan2, _libm(torch.sin, a),
+                                               _libm(torch.cos, a)))
     return torch.where(a == 0.0, 0.0, torch.atan2(torch.sin(a), torch.cos(a)))
 
 
@@ -114,8 +121,12 @@ class ShepherdingEnv(Env[ShepherdingParams, ShepherdingState]):
                        device=x.device),
             torch.full((params.n_sheep,), params.sheep_weight, dtype=x.dtype, device=x.device),
         ))
-        rx = (w * dx / r2).sum(dim=-1)
-        ry = (w * dy / r2).sum(dim=-1)
+        if params.parity_exact:
+            # the reference's order (:174-177): w * (diff / r2), summed in j
+            rx, ry = _seq_sum_cols(w * (dx / r2)), _seq_sum_cols(w * (dy / r2))
+        else:
+            rx = (w * dx / r2).sum(dim=-1)
+            ry = (w * dy / r2).sum(dim=-1)
         return torch.stack((rx, ry), dim=-1)[:, params.n_shepherds:]
 
     def _adj_mat(self, x: torch.Tensor, params: ShepherdingParams):
@@ -124,6 +135,8 @@ class ShepherdingEnv(Env[ShepherdingParams, ShepherdingState]):
         r2 = _pairwise_r2(x)[2]
         r2 = torch.where(torch.eye(n, dtype=torch.bool, device=x.device), torch.inf, r2)
         adj = (r2 < params.comm_radius ** 2).to(x.dtype)
+        if params.parity_exact:
+            return adj / _libm(torch.sqrt, r2)
         return adj / torch.sqrt(r2)
 
     def _obs(self, state: ShepherdingState, params: ShepherdingParams):
@@ -162,10 +175,14 @@ class ShepherdingEnv(Env[ShepherdingParams, ShepherdingState]):
         u = torch.cat((action * params.action_scalar, self._sheep_controller(x, params)),
                       dim=-2)
         theta = x[..., 2]
-        ct, st = torch.cos(theta), torch.sin(theta)
         d = params.d_offset
+        if params.parity_exact:
+            ct, st = _libm(torch.cos, theta), _libm(torch.sin, theta)
+            w = u[..., 0] * _div(-st, d) + u[..., 1] * _div(ct, d)
+        else:
+            ct, st = torch.cos(theta), torch.sin(theta)
+            w = u[..., 0] * (-st / d) + u[..., 1] * (ct / d)
         v = u[..., 0] * ct + u[..., 1] * st
-        w = u[..., 0] * (-st / d) + u[..., 1] * (ct / d)
         # the sheep move with a constant forward bias (:110)
         s = params.n_shepherds
         v = torch.cat((v[:, :s], v[:, s:] / 2.0 + 0.5), dim=-1)
@@ -179,6 +196,10 @@ class ShepherdingEnv(Env[ShepherdingParams, ShepherdingState]):
     def _instant_cost(self, x: torch.Tensor, params: ShepherdingParams):
         """``[B]`` fraction of sheep in the goal disk (:180-185)."""
         sheep = x[:, params.n_shepherds:, 0:2]
+        if params.parity_exact:
+            sx, sy = sheep[..., 0], sheep[..., 1]
+            inside = _libm(torch.sqrt, sx * sx + sy * sy) < params.goal_region_radius
+            return _div(inside.sum(dim=-1).to(x.dtype), params.n_sheep)
         inside = torch.linalg.vector_norm(sheep, dim=-1) < params.goal_region_radius
         return inside.sum(dim=-1).to(x.dtype) / params.n_sheep
 
@@ -192,12 +213,14 @@ class ShepherdingEnv(Env[ShepherdingParams, ShepherdingState]):
         x = state.x
         sx = x[:, :s]
         theta = sx[..., 2]
+        exact = params.parity_exact
+        atan2 = functools.partial(_libm, torch.atan2) if exact else torch.atan2
 
         def in_los(targets, tol):
             # [B, S, M] test of |wrap(bearing - heading)| < tol
             dx = targets[:, None, :, 0] - sx[:, :, None, 0]
             dy = targets[:, None, :, 1] - sx[:, :, None, 1]
-            return _wrap(torch.atan2(dy, dx) - theta[..., None]).abs() < tol
+            return _wrap(atan2(dy, dx) - theta[..., None], exact).abs() < tol
 
         deg2 = math.radians(2.0)
         sheep_los = in_los(x[:, s:], deg2).any(dim=-1)
@@ -216,9 +239,14 @@ class ShepherdingEnv(Env[ShepherdingParams, ShepherdingState]):
         vlr = _vlr_table(state.x)[self.los_branches(state, params)]  # [B, S, 2]
         L, d = params.wheel_base, params.d_offset
         v = (vlr[..., 1] + vlr[..., 0]) / 2.0
-        w = (vlr[..., 1] - vlr[..., 0]) / L
-        vx = v * torch.cos(theta) - w * d * torch.sin(theta)
-        vy = v * torch.sin(theta) + w * d * torch.cos(theta)
+        if params.parity_exact:
+            w = _div(vlr[..., 1] - vlr[..., 0], L)
+            ct, st = _libm(torch.cos, theta), _libm(torch.sin, theta)
+        else:
+            w = (vlr[..., 1] - vlr[..., 0]) / L
+            ct, st = torch.cos(theta), torch.sin(theta)
+        vx = v * ct - w * d * st
+        vy = v * st + w * d * ct
         return torch.stack((vx, vy), dim=-1)
 
     # ---------------------------------------------------------------- spaces

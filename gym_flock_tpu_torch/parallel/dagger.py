@@ -1,6 +1,6 @@
 """DAGGER (dataset aggregation) imitation of the flocking expert
-(counterpart of ``gym_flock_tpu/parallel/dagger.py``; the sharded
-iteration is not ported).
+(counterpart of ``gym_flock_tpu/parallel/dagger.py``, with its
+data-parallel iteration over ``torch.distributed``).
 
 Roll out under a mixture of expert and learner actions, label every
 visited state with the Turner expert, aggregate into a rolling buffer, and
@@ -27,13 +27,15 @@ from gym_flock_tpu_torch.envs.flocking import (
     turner_controller,
 )
 from gym_flock_tpu_torch.models.gnn import AggregationGNN
+from gym_flock_tpu_torch.parallel.distributed import local_shard_size, rank_generator
 from gym_flock_tpu_torch.parallel.train import (
     _ImitationTrainer,
+    all_reduce_mean,
     restore_checkpoint,
     save_checkpoint,
 )
 
-__all__ = ["DaggerTrainer", "DaggerState"]
+__all__ = ["DaggerTrainer", "DaggerState", "make_sharded_iteration"]
 
 
 @dataclasses.dataclass
@@ -165,3 +167,46 @@ class DaggerTrainer(_ImitationTrainer):
             x = env._rollout_integrate(x, self._policy_action(x), p, generator)
             total += _instant_cost(x).mean()
         return float(total / n_steps)
+
+
+def make_sharded_iteration(trainer: DaggerTrainer, group=None, n_envs: int = 16,
+                           n_steps: int = 16, n_grad_steps: int = 4):
+    """The data-parallel DAGGER iteration over the ranks of ``group``.
+
+    Each rank holds its own buffer of ``capacity / world`` samples and
+    collects ``n_envs / world`` envs; it runs one local
+    :meth:`DaggerTrainer.iteration` (``n_grad_steps`` Adam steps on its own
+    minibatches), then the weights and Adam's moment estimates are averaged
+    over the group, so that every rank leaves the iteration with the same
+    model.  Adam's ``step`` counts are equal on every rank and are left
+    alone, as JAX leaves its integer leaves.
+
+    Returns ``(step, init)``: ``init(generator)`` gives this rank the
+    weights drawn from ``generator`` (the same on every rank), a fresh Adam
+    and an empty local buffer; ``step(generator, beta) -> loss`` runs one
+    iteration and returns the loss averaged over the group.  ``trainer``'s
+    ``model`` and ``optimizer`` are the ones trained.
+    """
+    local_envs = local_shard_size(n_envs, group)
+    local = DaggerTrainer(trainer.env, trainer.env_params, trainer.model,
+                          learning_rate=trainer.learning_rate,
+                          capacity=local_shard_size(trainer.capacity, group),
+                          beta_decay=trainer.beta_decay, device=trainer.device)
+
+    def init(generator: torch.Generator) -> None:
+        local.init(generator)
+        trainer.optimizer, trainer.state, trainer.step = local.optimizer, local.state, 0
+
+    def step(generator: torch.Generator, beta: float) -> torch.Tensor:
+        loss = local.iteration(rank_generator(generator, group), beta, n_envs=local_envs,
+                               n_steps=n_steps, n_grad_steps=n_grad_steps)
+        floats = [p.data for p in local.model.parameters()]
+        for state in local.optimizer.state.values():
+            floats += [v for k, v in state.items() if k != "step"]
+        all_reduce_mean(floats, group)
+        loss = loss.detach().clone()
+        all_reduce_mean([loss], group)
+        trainer.step = local.step
+        return loss
+
+    return step, init

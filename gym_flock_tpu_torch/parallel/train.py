@@ -1,6 +1,7 @@
 """Imitation training of the flocking GNN policies (counterpart of
-``gym_flock_tpu/parallel/train.py``: the flocking trainers and the
-checkpoints; the data-parallel and sharded train steps are not ported).
+``gym_flock_tpu/parallel/train.py``: the flocking trainers, their
+data-parallel and agent-sharded train steps over ``torch.distributed``, and
+the checkpoints).
 
 A train step collects a fresh batch of expert data, then takes one update:
 the MSE of the policy's actions to the Turner expert's, its gradients, and
@@ -17,12 +18,16 @@ msgpack checkpoints.
 """
 from __future__ import annotations
 
+import copy
+import functools
 import os
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from gym_flock_tpu_torch.models.gnn import AggregationGNN, LargeAggregationGNN
+from gym_flock_tpu_torch.parallel.distributed import local_shard_size, rank_generator
 from gym_flock_tpu_torch.parallel.rollout import rollout
 
 __all__ = [
@@ -32,6 +37,8 @@ __all__ = [
     "collect_large_flocking_batch",
     "save_checkpoint",
     "restore_checkpoint",
+    "make_dp_train_step",
+    "all_reduce_mean",
 ]
 
 
@@ -111,6 +118,53 @@ def restore_checkpoint(path: str, model: torch.nn.Module, optimizer: torch.optim
     if extra is not None:
         extra.update(blob.get("extra", {}))
     return blob["step"]
+
+
+def all_reduce_mean(tensors, group=None) -> None:
+    """Replace each tensor by its mean over the ranks of ``group``, in place,
+    with one all-reduce of their concatenation."""
+    tensors = list(tensors)
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
+def make_dp_train_step(trainer, local_loss_fn: Callable[[torch.Generator], torch.Tensor],
+                       group=None) -> Callable[[torch.Generator], torch.Tensor]:
+    """The data-parallel train step of ``trainer`` (anything with ``model``,
+    ``optimizer`` and ``step``) over the ranks of ``group``.
+
+    ``step(generator)`` calls ``local_loss_fn(rank_generator)``, this rank's
+    loss on its own collect, backpropagates it, averages the gradients and
+    the loss over the group (one all-reduce each) and takes one optimizer
+    step, the same on every rank.  Returns the averaged loss.  Shared by the
+    flocking and coverage trainers.
+    """
+
+    def step(generator: torch.Generator) -> torch.Tensor:
+        local = rank_generator(generator, group)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        return _averaged_update(trainer, local_loss_fn(local), group)
+
+    return step
+
+
+def _averaged_update(trainer, loss: torch.Tensor, group) -> torch.Tensor:
+    """Backpropagate this rank's ``loss``, average the gradients and the loss
+    over ``group`` and take the optimizer step; returns the averaged loss."""
+    loss.backward()
+    all_reduce_mean([p.grad for p in trainer.model.parameters() if p.grad is not None], group)
+    loss = loss.detach().clone()
+    all_reduce_mean([loss], group)
+    trainer.optimizer.step()
+    trainer.step += 1
+    return loss
 
 
 class _ImitationTrainer:
@@ -203,6 +257,17 @@ class FlockingImitationTrainer(_ImitationTrainer):
     def collect(self, generator, n_envs, n_steps):
         return collect_flocking_batch(self.env, self.env_params, generator, n_envs, n_steps)
 
+    def make_sharded_train_step(self, group=None, n_envs: int = 16, n_steps: int = 8):
+        """The data-parallel train step over ``group``: each rank collects
+        ``n_envs / world`` envs of ``n_steps`` steps; ``step(generator) ->
+        loss`` (:func:`make_dp_train_step`)."""
+        local_envs = local_shard_size(n_envs, group)
+
+        def local_loss(generator):
+            return self._batch_loss(self.collect(generator, local_envs, n_steps))
+
+        return make_dp_train_step(self, local_loss, group)
+
 
 class LargeFlockingImitationTrainer(_ImitationTrainer):
     """Behaviour cloning at swarm sizes where no dense adjacency fits:
@@ -217,3 +282,32 @@ class LargeFlockingImitationTrainer(_ImitationTrainer):
     def collect(self, generator, n_envs, n_steps):
         return collect_large_flocking_batch(self.env, self.env_params, generator, n_envs,
                                             n_steps)
+
+    def make_agent_sharded_train_step(self, group=None, mode: str = "ring"):
+        """The train step with the AGENT axis split over ``group``, for
+        swarms past one card.
+
+        ``step((xs, feats, acts)) -> loss`` takes the whole ``[B, N, ...]``
+        batch on every rank and keeps this rank's block of ``N / world``
+        agents.  The model (the trainer's own weights) aggregates through
+        ``parallel.agent_shard.khop_aggregate_sharded`` in ``mode``; the
+        loss is this rank's mean (equal blocks, so the mean of the ranks'
+        means is the whole batch's), and the gradients and the loss are
+        averaged over the group before the Adam step.
+        """
+        from gym_flock_tpu_torch.parallel.agent_shard import khop_aggregate_sharded
+
+        model = self.model
+        sharded = copy.copy(model)  # the same parameter tensors, its own aggregate_fn
+        sharded.aggregate_fn = functools.partial(
+            khop_aggregate_sharded, comm_radius2=float(self.env_params.comm_radius2),
+            k_hops=model.k_hops, group=group, mode=mode)
+        rank = dist.get_rank(group)
+
+        def step(batch) -> torch.Tensor:
+            m = local_shard_size(batch[0].shape[1], group)
+            xs, feats, acts = (b[:, rank * m:(rank + 1) * m] for b in batch)
+            self.optimizer.zero_grad(set_to_none=True)
+            return _averaged_update(self, torch.mean((sharded(xs, feats) - acts) ** 2), group)
+
+        return step

@@ -1,6 +1,6 @@
 """Imitation training of the coverage policy (counterpart of
-``gym_flock_tpu/parallel/train_coverage.py``; the sharded train step is not
-ported).
+``gym_flock_tpu/parallel/train_coverage.py``, with its data-parallel train
+step over ``torch.distributed``).
 
     greedy-expert rollouts (K5 once a step) -> (padded obs graphs, labels)
     -> EdgeGraphNet message passing -> per-robot action logits
@@ -25,13 +25,15 @@ import torch.nn.functional as F
 
 from gym_flock_tpu_torch.envs.coverage import CoverageEnv, CoverageParams
 from gym_flock_tpu_torch.models.gnn import EdgeGraphNet
-from gym_flock_tpu_torch.parallel.train import _flat, _ImitationTrainer
+from gym_flock_tpu_torch.parallel.distributed import local_shard_size
+from gym_flock_tpu_torch.parallel.train import _flat, _ImitationTrainer, make_dp_train_step
 
 __all__ = [
     "CoverageImitationTrainer",
     "CoverageDaggerTrainer",
     "collect_coverage_batch",
     "action_edge_logits",
+    "make_sharded_train_step",
 ]
 
 SAMPLE_KEYS = ("nodes", "edges", "senders", "receivers")
@@ -198,6 +200,21 @@ class CoverageImitationTrainer(_ImitationTrainer):
             "expert_reward": exp,
             "reward_ratio": pol / exp if exp != 0 else float("nan"),
         }
+
+
+def make_sharded_train_step(trainer: CoverageImitationTrainer, group=None, n_envs: int = 16,
+                            n_steps: int = 8):
+    """The data-parallel coverage BC step over the ranks of ``group``: each
+    rank collects ``n_envs / world`` greedy-expert envs of ``n_steps`` steps
+    (K5 once a step); ``step(generator) -> loss``
+    (``parallel.train.make_dp_train_step``)."""
+    local_envs = local_shard_size(n_envs, group)
+
+    def local_loss(generator):
+        return trainer.loss_fn(collect_coverage_batch(trainer.env, trainer.env_params,
+                                                      generator, local_envs, n_steps))
+
+    return make_dp_train_step(trainer, local_loss, group)
 
 
 class CoverageDaggerTrainer:

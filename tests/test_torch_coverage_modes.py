@@ -323,7 +323,7 @@ def test_port_bank_round_trips_and_jax_reads_it(tmp_path):
     _, tp = gft.make("ExploreEnv-v0", n_graphs=2, device="cpu")
     path = str(tmp_path / "bank.npz")
     tcg.save_graph_bank(path, tp.bank)
-    loaded = tcg.load_graph_bank(path)
+    loaded = tcg.load_graph_bank(path, device="cpu")
     assert set(loaded) == set(tp.bank)
     for k, v in tp.bank.items():
         assert loaded[k].dtype == v.dtype and torch.equal(loaded[k], v), k
@@ -342,11 +342,11 @@ def test_schema_mismatch_raises(tmp_path):
     arrays["__bank_schema__"] = np.asarray(tcg.BANK_SCHEMA + 1)
     np.savez(path, **arrays)
     with pytest.raises(ValueError, match="schema"):
-        tcg.load_graph_bank(str(path))
+        tcg.load_graph_bank(str(path), device="cpu")
     del arrays["__bank_schema__"]
     np.savez(path, **arrays)
     with pytest.raises(ValueError, match="__bank_schema__"):
-        tcg.load_graph_bank(str(path))
+        tcg.load_graph_bank(str(path), device="cpu")
 
 
 # a bank that builds in well under a second: one small road-lattice map
@@ -401,7 +401,7 @@ def test_corrupt_cache_file_is_rebuilt(monkeypatch, tmp_path):
     monkeypatch.setattr(tcov, "_bank_cache", {})
     again = tcov.default_coverage_bank(**_SMALL)
     assert torch.equal(again["graph_cost"], built["graph_cost"])
-    assert tcg.load_graph_bank(str(path))["graph_cost"].shape == built["graph_cost"].shape
+    assert tcg.load_graph_bank(str(path), device="cpu")["graph_cost"].shape == built["graph_cost"].shape
 
 
 def test_unwritable_cache_keeps_the_memo(monkeypatch, tmp_path):
