@@ -207,6 +207,23 @@ Phases, each printing one line:
 33. ``parity_exact`` at float64: FlockingRelative-v0 50 expert steps on the
    card bitwise equal to the host's; Shepherding-v0's and Mapping-v0's
    largest ulp gap to the host, each step from the card's state.
+34. the legacy facade's lookahead: phase 27's 1500-pair loop on
+   FlockingRelative-v0, Coverage-v0 and CoverageARL-v0 (real map), once
+   with the lookahead and once on a twin whose queue is flushed after every
+   controller call (the eager path: each call computed as it comes): every
+   observation, reward and done equal bit for bit, call for call, and the
+   final generator states equal; K1 exactly once a reset draw, K5 exactly
+   once a greedy controller evaluation.  Pairs/s of both, the depth
+   reached, and the launches and synchronisations a pair of a traced
+   window of the lookahead.  Then the 120-event randomized interleaving of
+   ``tests/test_torch_legacy_lookahead.py`` against the twin on
+   FlockingRelative-v0 and Coverage-v0, the facade queueing after every
+   hit.
+35. the example drivers on the card: ``examples/torch_run_flocking.py``
+   (single stream and batched), ``torch_run_coverage.py`` (greedy, real
+   map), ``torch_run_shepherding.py`` (single and batched) and
+   ``torch_train_flocking_large.py``, each a subprocess of a few steps,
+   all at once; each must exit with 0.
 
 Then one JSON line describing each kernel (its time, its plain version's,
 and its bound: the larger of the operations it must do over the f32 peak
@@ -2401,6 +2418,8 @@ LEGACY_STEPS = 1500  # controller()/step() pairs of bench metrics 9-11's loop
 # the reference's single-stream CPU rates that bench.py:37-42 quotes (BASELINE.md)
 LEGACY_BASELINES = {"FlockingRelative-v0": 835.0, "Coverage-v0": 2381.0,
                     "CoverageARL-v0": 176.0}
+LEGACY_IDS = (("FlockingRelative-v0", {}), ("Coverage-v0", {}),
+              ("CoverageARL-v0", {"real_map": True}))
 BRIDGE_STEPS = 20
 BRIDGE_U_ATOL = 1e-5  # the card's Turner action against the host's
 
@@ -2604,12 +2623,16 @@ def first_step_equal(what: str, facade_step, env, params, state, gen, action, ba
     return result
 
 
-def legacy_loop(device: str, env_id: str, n_steps: int, **kwargs) -> dict:
+def legacy_loop(device: str, env_id: str, n_steps: int, flush: bool = False,
+                record: list | None = None, **kwargs) -> dict:
     """Bench metrics 9-11's loop: ``u = env.controller(); env.step(u)``
     ``n_steps`` times on a ``make_legacy`` env (coverage ids greedy and
     wrapped in ``FlattenDictWrapper``, as reference test.py:33), resetting
-    where an episode ends.  K1 must launch once per reset draw and K5 once
-    per greedy controller call."""
+    where an episode ends.  With ``flush`` the facade's lookahead queue is
+    flushed after every controller call (the eager path: each controller
+    call computed alone, each step as it comes); ``record`` collects every
+    step's and reset's result.  K1 must launch once per reset draw and K5
+    once per evaluation of the greedy controller, queued or alone."""
     from gym_flock_tpu_torch.compat import FlattenDictWrapper, make_legacy
     from gym_flock_tpu_torch.ops import flocking_sums as k1
     from gym_flock_tpu_torch.ops import rowmin as k5
@@ -2617,10 +2640,11 @@ def legacy_loop(device: str, env_id: str, n_steps: int, **kwargs) -> dict:
     legacy = make_legacy(env_id, device=device, **kwargs)
     coverage = env_id.startswith("Coverage")
     env = FlattenDictWrapper(legacy) if coverage else legacy
+    record = [] if record is None else record
     legacy.seed(SEED)
     _sync()
     reset_counts()
-    tries = resets = 0
+    tries = resets = depth = 0
     reset_xs = []
 
     def reset():
@@ -2630,21 +2654,30 @@ def legacy_loop(device: str, env_id: str, n_steps: int, **kwargs) -> dict:
         tries += getattr(legacy.env, "last_reset_tries", 0)
         if not coverage:
             reset_xs.append(legacy.state.x)
-        return obs
+        record.append(obs)
+
+    def controller():
+        nonlocal depth
+        u = legacy.controller(greedy=True) if coverage else legacy.controller()
+        depth = max(depth, len(legacy._queue))
+        if flush:
+            legacy._flush_queue()
+        return u
 
     t0 = time.perf_counter()
     reset()
     reset_s = time.perf_counter() - t0
     # the first pair, held to the env's functions from the same state
     state, gen = legacy.state, legacy._gen
-    u = legacy.controller(greedy=True) if coverage else legacy.controller()
-    first_step_equal(env_id, legacy.step, legacy.env, legacy.params, state, gen, u,
-                     batched=False)
+    u = controller()
+    record.append(first_step_equal(env_id, legacy.step, legacy.env, legacy.params, state,
+                                   gen, u, batched=False)[:3])
     steps, rewards = 1, 0.0
     t1 = time.perf_counter()
     while steps < n_steps:
-        u = legacy.controller(greedy=True) if coverage else legacy.controller()
-        _, r, done, _ = env.step(u)
+        u = controller()
+        obs, r, done, _ = env.step(u)
+        record.append((obs, r, done))
         rewards += r
         steps += 1
         if done:
@@ -2652,14 +2685,14 @@ def legacy_loop(device: str, env_id: str, n_steps: int, **kwargs) -> dict:
     _sync()
     loop_s = time.perf_counter() - t1
     k1_launches, k5_launches = k1.launches, k5.launches
-    controller_calls = n_steps if coverage else 0
-    if k1_launches != tries or k5_launches != controller_calls:
+    evals = legacy.controller_evals if coverage else 0
+    if k1_launches != tries or k5_launches != evals:
         raise AssertionError(f"{env_id} legacy: K1 {k1_launches} for {tries} reset draws, "
-                             f"K5 {k5_launches} for {controller_calls} greedy calls")
+                             f"K5 {k5_launches} for {evals} greedy controller evaluations")
     if not math.isfinite(rewards):
         raise AssertionError(f"{env_id} legacy: non-finite rewards")
     rate = (n_steps - 1) / loop_s
-    out = {}
+    out = {"legacy": legacy}
     if not coverage:
         # K1 at this loop's own shape (B=1, N=100) on every accepted reset
         # draw, after the counts were read
@@ -2668,13 +2701,15 @@ def legacy_loop(device: str, env_id: str, n_steps: int, **kwargs) -> dict:
         for x in reset_xs:
             e = k1_reset_check(x, p.comm_radius, p.comm_radius2)
             err = {k: max(v, e[k]) for k, v in err.items()}
-        out = {"k1_grid_b1": k1.launch_grid(1, p.n_agents, p.n_agents),
-               "k1_checked_resets": len(reset_xs), "k1_vs_plain": err}
+        out |= {"k1_grid_b1": k1.launch_grid(1, p.n_agents, p.n_agents),
+                "k1_checked_resets": len(reset_xs), "k1_vs_plain": err}
     return out | {"pairs": n_steps, "resets": resets, "reset_draws": tries,
-            "k1_launches": k1_launches, "k5_launches": k5_launches,
-            "first_reset_ms": reset_s * 1e3, "ms_a_pair": loop_s * 1e3 / (n_steps - 1),
-            "steps_per_s": rate, "reference_cpu_steps_per_s": LEGACY_BASELINES[env_id],
-            "vs_reference": rate / LEGACY_BASELINES[env_id], "reward_sum": rewards}
+                  "k1_launches": k1_launches, "k5_launches": k5_launches,
+                  "computed_pairs": legacy.computed_pairs,
+                  "controller_evals": legacy.controller_evals, "depth": depth,
+                  "first_reset_ms": reset_s * 1e3, "ms_a_pair": loop_s * 1e3 / (n_steps - 1),
+                  "steps_per_s": rate, "reference_cpu_steps_per_s": LEGACY_BASELINES[env_id],
+                  "vs_reference": rate / LEGACY_BASELINES[env_id], "reward_sum": rewards}
 
 
 def gymnasium_single(device: str) -> dict:
@@ -2810,11 +2845,8 @@ def vector_coverage(device: str, n_envs: int, n_steps: int) -> dict:
 
 def phase_facades(device: str) -> dict:
     """Phase 27: the gym facades on the card."""
-    out = {"legacy": {
-        "FlockingRelative-v0": legacy_loop(device, "FlockingRelative-v0", LEGACY_STEPS),
-        "Coverage-v0": legacy_loop(device, "Coverage-v0", LEGACY_STEPS),
-        "CoverageARL-v0": legacy_loop(device, "CoverageARL-v0", LEGACY_STEPS, real_map=True),
-    }}
+    out = {"legacy": {env_id: without_facade(legacy_loop(device, env_id, LEGACY_STEPS, **kw))
+                      for env_id, kw in LEGACY_IDS}}
     out["gymnasium"] = gymnasium_single(device)
     out["vector_flocking"] = vector_flocking(device, n_envs=8192, n_steps=16, limit=8)
     out["vector_coverage"] = vector_coverage(device, n_envs=8192, n_steps=80)
@@ -3452,6 +3484,200 @@ def phase_parity(device: str, n_steps: int) -> dict:
     return res
 
 
+TRACED_PAIRS = 48  # one coverage queue at its cap of 48
+DIFF_EVENTS = 120
+
+
+def without_facade(result: dict) -> dict:
+    return {k: v for k, v in result.items() if k != "legacy"}
+
+
+def bit_equal(a, b) -> bool:
+    """Two results of the legacy facade equal bit for bit: arrays by their
+    bytes, dtype and shape; floats and bools by value and type."""
+    if isinstance(a, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(bit_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(bit_equal(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return type(a) is type(b) and a == b
+
+
+def traced_pairs(legacy, n: int) -> dict:
+    """``n`` more pairs of ``legacy_loop``'s loop under ``torch.profiler``:
+    the launches, synchronisations and idle share a pair."""
+    from tools.profile_facades import traced
+
+    coverage = legacy.env_id.startswith("Coverage")
+
+    def pairs():
+        for _ in range(n):
+            u = legacy.controller(greedy=True) if coverage else legacy.controller()
+            if legacy.step(u)[2]:
+                legacy.reset()
+
+    t = traced(pairs, n)
+    return {k: t[k] for k in ("wall_ms_each", "launches_each", "syncs_each", "idle_share")}
+
+
+def lookahead_differential(device: str, env_id: str, n_events: int) -> dict:
+    """The randomized interleaving of ``tests/test_torch_legacy_lookahead.py``
+    on the card: pairs, doubled controller calls, perturbed steps and resets
+    on a facade with the lookahead and on its flushed twin; every result
+    bit for bit and the final generator states equal.  The facade queues
+    after every hit (``_RAMP`` 1), so that the queue meets every kind of
+    event.  K1 once a reset draw and K5 once a greedy controller
+    evaluation, over both facades."""
+    import torch
+
+    from gym_flock_tpu_torch.compat import make_legacy
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import rowmin as k5
+
+    greedy = env_id.startswith("Coverage")
+    a, b = make_legacy(env_id, device=device), make_legacy(env_id, device=device)
+    a._RAMP = 1
+    _sync()
+    reset_counts()
+    draws = 0
+
+    def ctrl(e):
+        return e.controller(greedy=True) if greedy else e.controller()
+
+    def unfused():
+        u = ctrl(b)
+        b._flush_queue()
+        return u
+
+    def check(what, x, y):
+        if not bit_equal(x, y):
+            raise AssertionError(f"{env_id} differential: {what} differs from the twin's")
+
+    def resets():
+        nonlocal draws
+        check("reset", a.reset(), b.reset())
+        draws += getattr(a.env, "last_reset_tries", 0) + getattr(b.env, "last_reset_tries", 0)
+
+    a.seed(9), b.seed(9)
+    resets()
+    rng = np.random.RandomState(0)
+    events = {}
+    for i in range(n_events):
+        ev = str(rng.choice(["pair", "double", "miss", "reset"], p=[0.6, 0.15, 0.15, 0.1]))
+        events[ev] = events.get(ev, 0) + 1
+        if ev == "reset":
+            resets()
+            continue
+        ua, ub = ctrl(a), unfused()
+        if ev == "double":
+            ua, ub = ctrl(a), unfused()
+        check(f"event {i} action", ua, ub)
+        if ev == "miss":
+            ua = (ua + 1) % 4 if greedy else ua + np.float32(0.25)
+            ub = ua.copy()
+        ra, rb = a.step(ua)[:3], b.step(ub)[:3]
+        check(f"event {i} ({ev}) step", ra, rb)
+        if ra[2]:
+            resets()
+    _sync()
+    if not torch.equal(a._gen.get_state(), b._gen.get_state()):
+        raise AssertionError(f"{env_id} differential: the generator states differ")
+    evals = a.controller_evals + b.controller_evals if greedy else 0
+    if k1.launches != draws or k5.launches != evals:
+        raise AssertionError(f"{env_id} differential: K1 {k1.launches} for {draws} draws, "
+                             f"K5 {k5.launches} for {evals} controller evaluations")
+    return {"events": events, "computed_pairs": a.computed_pairs,
+            "controller_evals": a.controller_evals,
+            "twin_controller_evals": b.controller_evals, "k1_launches": k1.launches,
+            "k5_launches": k5.launches}
+
+
+def phase_lookahead(device: str, n_steps: int) -> dict:
+    """Phase 34: the legacy facade's lookahead against its flushed twin,
+    which runs the eager path.  The traced windows (the lookahead's only)
+    come after every timed loop, so that no profiler session runs before a
+    timed one."""
+    import torch
+
+    out, facades, k1_total, k5_total = {}, {}, 0, 0
+    t0 = time.perf_counter()
+    keys = ("steps_per_s", "ms_a_pair", "depth", "computed_pairs", "controller_evals",
+            "resets", "reset_draws", "k1_launches", "k5_launches")
+    for env_id, kw in LEGACY_IDS:
+        runs, records, gens = {}, {}, {}
+        for name, flush in (("twin", True), ("lookahead", False)):
+            records[name] = []
+            res = legacy_loop(device, env_id, n_steps, flush=flush, record=records[name], **kw)
+            facades[env_id, name] = res["legacy"]
+            gens[name] = res["legacy"]._gen.get_state()
+            runs[name] = {k: res[k] for k in keys}
+            k1_total += res["k1_launches"]
+            k5_total += res["k5_launches"]
+        got, want = records.pop("lookahead"), records.pop("twin")
+        if len(got) != len(want):
+            raise AssertionError(f"{env_id}: {len(got)} results against the twin's {len(want)}")
+        for i, (x, y) in enumerate(zip(got, want)):
+            if not bit_equal(x, y):
+                raise AssertionError(f"{env_id}: call {i} differs from the flushed twin's")
+        if not torch.equal(gens["lookahead"], gens["twin"]):
+            raise AssertionError(f"{env_id}: the generator states differ from the twin's")
+        out[env_id] = runs | {"calls_compared": len(got), "lookahead_over_eager": (
+            runs["lookahead"]["steps_per_s"] / runs["twin"]["steps_per_s"])}
+    t1 = time.perf_counter()
+    for env_id, _ in LEGACY_IDS:
+        out[env_id]["lookahead"]["traced"] = traced_pairs(facades[env_id, "lookahead"],
+                                                          TRACED_PAIRS)
+    t2 = time.perf_counter()
+    out["differential"] = {env_id: lookahead_differential(device, env_id, DIFF_EVENTS)
+                           for env_id in ("FlockingRelative-v0", "Coverage-v0")}
+    out["seconds"] = {"loops": t1 - t0, "traced": t2 - t1,
+                      "differential": time.perf_counter() - t2}
+    out["k1_launches"] = k1_total + sum(d["k1_launches"] for d in out["differential"].values())
+    out["k5_launches"] = k5_total + sum(d["k5_launches"] for d in out["differential"].values())
+    return out
+
+
+EXAMPLES = (
+    ("torch_run_flocking.py", "-n", "100"),
+    ("torch_run_flocking.py", "--batch", "1024", "--steps", "16"),
+    ("torch_run_coverage.py", "-g", "-n", "1"),
+    ("torch_run_shepherding.py", "-N", "1", "--steps", "50"),
+    ("torch_run_shepherding.py", "--batch", "1024", "--steps", "50"),
+    ("torch_train_flocking_large.py", "--agents", "2048", "--iters", "3"),
+)
+EXAMPLE_TIMEOUT_S = 300
+
+
+def phase_examples() -> dict:
+    """Phase 35: the example drivers on the card, each a subprocess of a
+    few steps, all started at once; each must exit with 0."""
+    t0 = time.perf_counter()
+    procs = [(argv, subprocess.Popen([sys.executable, str(ROOT / "examples" / argv[0]),
+                                      *argv[1:]], cwd=str(ROOT), text=True,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+             for argv in EXAMPLES]
+    out = {}
+    try:
+        for argv, proc in procs:
+            stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            name = " ".join(argv)
+            if proc.returncode != 0:
+                raise AssertionError(f"example {name} exited with {proc.returncode}:\n"
+                                     f"{stderr[-3000:]}")
+            lines = stdout.strip().splitlines()
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "last_line": lines[-1] if lines else ""}
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3685,6 +3911,16 @@ def main() -> int:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
 
+    # 34. the legacy facade's lookahead against its flushed twin
+    t34 = phase_lookahead(device, LEGACY_STEPS)
+    _sync()
+    print(f"phase 34 make_legacy lookahead vs flushed twin, {LEGACY_STEPS} pairs, "
+          f"{DIFF_EVENTS}-event differential: " + json.dumps(t34))
+
+    # 35. the example drivers
+    t35 = phase_examples()
+    print("phase 35 examples/torch_*.py on the card: " + json.dumps(t35))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
@@ -3697,7 +3933,8 @@ def main() -> int:
         "launches": (large["launches"] + rel["launches"] + sr["k1_launches"]
                      + t14["k1_collect_launches"] + t15["k1_launches"] + t16["k1_launches"]
                      + t20["k1_launches"] + t21["k1_launches"] + t25["k1_launches"]
-                     + t27["k1_launches"] + t31["k1_launches"] + t32["k1_launches"]),
+                     + t27["k1_launches"] + t31["k1_launches"] + t32["k1_launches"]
+                     + t34["k1_launches"]),
         "max_abs_err": max(k["worst"]["abs"], k3["k1_dense_a"]["abs"],
                            sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"],
                            t21["k1_vs_plain"]["abs"], t25["k1_vs_plain"]["abs"],
@@ -3718,7 +3955,8 @@ def main() -> int:
         "replaces": "gym_flock_tpu/ops/rowmin.py:72",
         "launches": (xf["launches"] + cv["launches"] + t17["k5_launches"]
                      + t17["eval_k5_launches"] + t18["k5_launches"] + t19["k5_launches"]
-                     + t26["k5_launches"] + t27["k5_launches"] + t32["k5_launches"]),
+                     + t26["k5_launches"] + t27["k5_launches"] + t32["k5_launches"]
+                     + t34["k5_launches"]),
         "max_abs_err": k5r["max_abs_err"],
         "ms": k5_big["ms"],
         "plain_ms": k5_big["plain_ms"],

@@ -23,4 +23,6 @@ functions run their plain PyTorch versions.
 from gym_flock_tpu_torch.core.registry import make, register, registry
 from gym_flock_tpu_torch import _register_all  # noqa: F401  (populates registry)
 
-__all__ = ["make", "register", "registry"]
+__version__ = "1.0.0"  # the distribution's version (pyproject.toml)
+
+__all__ = ["make", "register", "registry", "__version__"]

@@ -3,14 +3,16 @@
 An :class:`Env` is a namespace of functions over a frozen-dataclass state
 whose tensors carry the batch of environments as their leading dimension:
 
-    state, obs                = env.reset_env(generator, params, n_envs)
-    state, obs, r, done, info = env.step_env(generator, state, action, params)
-    action                    = env.controller(state, params, generator)
+    state, obs                = env.reset(generator, params, n_envs=1)
+    state, obs, r, done, info = env.step(generator, state, action, params)
+    action                    = env.expert(state, params, generator)
 
 ``reward`` is ``[B]`` and ``done`` a ``[B]`` bool tensor.  Randomness comes
 from an explicit ``torch.Generator``; every tensor an env creates lies on
-that generator's device.  PyTorch runs eagerly, so there are no jitted
-wrappers: ``reset_env``/``step_env`` are the entry points.
+that generator's device.  ``reset``/``step``/``expert`` are the JAX
+package's user entry points; PyTorch runs eagerly, so they call
+``reset_env``/``step_env``/``controller``, which subclasses implement,
+with nothing compiled.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ TState = TypeVar("TState")
 Obs = Any
 Action = Any
 
-__all__ = ["Env", "EnvState", "step_autoreset"]
+__all__ = ["Env", "EnvState", "EnvTransition", "step_autoreset"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +36,19 @@ class EnvState:
     """Base for env states: every state carries the step counter."""
 
     time: torch.Tensor  # int32 [B], steps since reset
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvTransition:
+    """One (s, a, r, s') record, with JAX's fields.  The port's
+    ``parallel.rollout.rollout`` returns its trajectory as a dict of the
+    same names, ``info`` left out."""
+
+    obs: Any
+    action: Any
+    reward: torch.Tensor
+    done: torch.Tensor
+    info: Dict[str, Any]
 
 
 class Env(Generic[TParams, TState]):
@@ -71,6 +86,22 @@ class Env(Generic[TParams, TState]):
     @property
     def name(self) -> str:
         return type(self).__name__
+
+    # ---------------------------------------------------------- entry points
+
+    def reset(self, generator: torch.Generator, params: TParams,
+              n_envs: int = 1) -> Tuple[TState, Obs]:
+        return self.reset_env(generator, params, n_envs)
+
+    def step(
+        self, generator: torch.Generator, state: TState, action: Action, params: TParams,
+    ) -> Tuple[TState, Obs, torch.Tensor, torch.Tensor, Dict[str, Any]]:
+        return self.step_env(generator, state, action, params)
+
+    def expert(self, state: TState, params: TParams,
+               generator: torch.Generator | None = None) -> Action:
+        """The expert action with the controller's default options."""
+        return self.controller(state, params, generator)
 
 
 def _select(done: torch.Tensor, a, b):

@@ -13,7 +13,7 @@ from typing import Mapping, Sequence, Tuple
 
 import torch
 
-__all__ = ["Space", "Box", "Discrete", "MultiDiscrete", "DictSpace"]
+__all__ = ["Space", "Box", "Discrete", "MultiDiscrete", "DictSpace", "flatten_space"]
 
 
 class Space:
@@ -127,3 +127,17 @@ class DictSpace(Space):
 
     def keys(self) -> Sequence[str]:
         return list(self.spaces.keys())
+
+
+def flatten_space(space: Space) -> int:
+    """The number of scalars in a flattened sample of ``space``, as gym's
+    FlattenDictWrapper flattens it (reference test.py:33)."""
+    if isinstance(space, DictSpace):
+        return sum(flatten_space(s) for s in space.spaces.values())
+    if isinstance(space, Box):
+        return math.prod(space.shape)
+    if isinstance(space, MultiDiscrete):
+        return len(space.nvec)
+    if isinstance(space, Discrete):
+        return 1
+    raise TypeError(f"Cannot flatten {space!r}")

@@ -22,7 +22,7 @@ import numpy as np
 
 from gym_flock_tpu_torch.ops._build import BUILD_DIR
 
-__all__ = ["solve_vrp_raw", "library_path"]
+__all__ = ["solve_vrp_raw", "library_path", "native_available"]
 
 SOURCE = Path(__file__).resolve().parent / "vrp_solver.cc"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -83,6 +83,15 @@ def _load() -> ctypes.CDLL:
                 fn.argtypes = argtypes + extra
             _lib = lib
         return _lib
+
+
+def native_available() -> bool:
+    """Whether the solver library builds (at first use) and loads here."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def solve_vrp_raw(

@@ -5,13 +5,23 @@ last two.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = [
-    "pairwise_sq_dists", "radius_adjacency", "mean_pool_normalize", "nodes_within_radius",
+    "pos_diff", "pairwise_sq_dists", "radius_adjacency", "mean_pool_normalize",
+    "radius_edges_masked", "knn_edges", "nodes_within_radius",
 ]
+
+
+def pos_diff(sender_loc: torch.Tensor, receiver_loc: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """All-pairs differences ``sender[..., i, :] - receiver[..., j, :]``,
+    ``[..., N, M, D]`` (reference utils.py:42-57)."""
+    if receiver_loc is None:
+        receiver_loc = sender_loc
+    return sender_loc[..., :, None, :] - receiver_loc[..., None, :, :]
 
 
 def pairwise_sq_dists(
@@ -54,7 +64,52 @@ def nodes_within_radius(rad, pos1: torch.Tensor, pos2: torch.Tensor) -> torch.Te
     to the sum of the kept distances, so it does not by itself mark a node
     as seen (the reference zeroes distances > rad, sums, and tests > 0).
     """
-    diff = pos1[..., :, None, :] - pos2[..., None, :, :]
-    r = torch.sqrt(diff[..., 0] ** 2 + diff[..., 1] ** 2)
+    r = _distances(pos_diff(pos1, pos2))
     r = torch.where(r > rad, 0.0, r)
     return r.sum(dim=-2) > 0
+
+
+def _distances(diff: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(diff[..., 0] ** 2 + diff[..., 1] ** 2)
+
+
+def radius_edges_masked(
+    rad, pos1: torch.Tensor, pos2: Optional[torch.Tensor] = None, self_loops: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The radius graph as a dense masked edge set (reference utils.py:8-24,
+    whose ``np.nonzero`` edge list has a data-dependent length):
+    ``(mask, dist, diff [..., N, M, 2], r)``, ``mask`` where ``0 < r <= rad``
+    and ``dist`` the distance there, else 0.
+
+    ``self_loops`` has no effect, as in the reference: its ``np.nonzero``
+    drops every zero distance, the diagonal's included.
+    """
+    del self_loops
+    diff = pos_diff(pos1, pos2)
+    r = _distances(diff)
+    mask = (r <= rad) & (r > 0)
+    return mask, torch.where(mask, r, 0.0), diff, r
+
+
+def knn_edges(
+    k: int, pos1: torch.Tensor, pos2: Optional[torch.Tensor] = None,
+    self_loops: bool = False, allow_nearest: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each row's k nearest as ``(index [..., N, k], dist, diff [..., N, k,
+    D])`` (reference utils.py:60-88): with ``allow_nearest`` the k nearest,
+    else the 2nd to (k+1)-th nearest (the reference drops the nearest).
+    Without ``pos2`` a row's own entry is never a neighbour unless
+    ``self_loops``.  Ties go to the lower index (a stable sort), as
+    ``jax.lax.top_k`` breaks them.
+    """
+    same = pos2 is None
+    diff = pos_diff(pos1, pos2)
+    r = _distances(diff)
+    if same and not self_loops:
+        n = r.shape[-1]
+        r = torch.where(torch.eye(n, dtype=torch.bool, device=r.device), torch.inf, r)
+    dists, idx = torch.sort(r, dim=-1, stable=True)
+    lo = 0 if allow_nearest else 1
+    dists, idx = dists[..., lo:lo + k], idx[..., lo:lo + k]
+    diffs = diff.gather(-2, idx[..., None].expand(*idx.shape, diff.shape[-1]))
+    return idx, dists, diffs

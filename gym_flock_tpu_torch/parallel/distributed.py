@@ -19,6 +19,7 @@ does every function that needs a process group when none was set up.
 from __future__ import annotations
 
 import hashlib
+import os
 from datetime import timedelta
 from typing import Optional
 
@@ -37,16 +38,22 @@ def initialize(backend: str = "nccl", init_method: Optional[str] = None,
     ``init_method`` is a ``tcp://host:port`` or ``file://path`` address
     (``None`` reads ``MASTER_ADDR``/``MASTER_PORT`` from the environment);
     ``world_size`` and ``rank`` say where this process stands.  NCCL (the
-    default) first makes card ``rank % device_count`` this process's
-    device.  Any failure raises, a second call included: unlike the JAX
-    package's ``initialize``, nothing is swallowed.
+    default) first makes a card this process's device: ``rank %
+    device_count``, or, when ``rank`` comes from the environment, its
+    ``LOCAL_RANK`` (else its ``RANK``, else 0) modulo the card count, so
+    that the ranks of one host each take a card of their own.  Any failure
+    raises, a second call included: unlike the JAX package's
+    ``initialize``, nothing is swallowed.
     """
     if dist.is_initialized():
         raise RuntimeError("torch.distributed is already initialized")
     if backend == "nccl":
         if not torch.cuda.is_available():
             raise RuntimeError("the nccl backend needs a CUDA device; none is available")
-        torch.cuda.set_device((rank or 0) % torch.cuda.device_count())
+        card = rank
+        if card is None:
+            card = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", "0")))
+        torch.cuda.set_device(card % torch.cuda.device_count())
     kwargs = {}
     if timeout_s is not None:
         kwargs["timeout"] = timedelta(seconds=timeout_s)

@@ -88,6 +88,30 @@ def test_initialize_nccl_without_a_card_raises(tmp_path):
     assert not dist.is_initialized()
 
 
+@pytest.mark.parametrize("env,rank,want", [
+    (dict(RANK="3", LOCAL_RANK="3", WORLD_SIZE="4"), None, 3),
+    (dict(RANK="5", LOCAL_RANK="1", WORLD_SIZE="8"), None, 1),
+    (dict(RANK="6", WORLD_SIZE="8"), None, 2),
+    (dict(RANK="5", LOCAL_RANK="1", WORLD_SIZE="8"), 7, 3),
+])
+def test_initialize_nccl_puts_each_rank_on_its_card(monkeypatch, env, rank, want):
+    """NCCL's card on a host of 4 faked cards: ``rank % 4`` when the rank
+    is given; else ``LOCAL_RANK``, else ``RANK``, modulo 4, when the
+    rendezvous comes from the environment (as torchrun sets it)."""
+    cards, groups = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    monkeypatch.setattr(dist, "init_process_group", lambda **kw: groups.append(kw))
+    for name in ("RANK", "LOCAL_RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    tdist.initialize("nccl", rank=rank)
+    assert cards == [want]
+    assert groups[0]["backend"] == "nccl" and groups[0]["rank"] == (-1 if rank is None else rank)
+
+
 def test_second_initialize_raises_and_the_helpers_see_the_group(outs):
     for r, o in enumerate(outs):
         assert str(o["second_init"]) == "torch.distributed is already initialized"

@@ -11,16 +11,21 @@ _JAX_IMPORT = re.compile(
     r"^\s*(import|from)\s+(jax|flax|optax|gym_flock_tpu)(\.|\s|$)", re.M)
 
 
+TORCH_EXAMPLES = sorted(p.name for p in (REPO / "examples").glob("torch_*.py"))
+
+
 def _port_files():
     return sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + [
         "chip_smoke.py", "tools/train_quality_torch.py", "tools/profile_coverage_train.py",
-        "tools/profile_families.py", "tools/profile_facades.py"]
+        "tools/profile_families.py", "tools/profile_facades.py",
+        "tools/compare_legacy_parent.py"] + [
+        f"examples/{name}" for name in TORCH_EXAMPLES]
 
 
 @pytest.mark.parametrize("rel", _port_files())
 def test_port_imports_no_jax(rel):
-    """Neither the port, chip_smoke.py nor the port's training scripts under
-    tools/ import jax, flax, optax or the JAX package."""
+    """Neither the port, chip_smoke.py, the port's scripts under tools/ nor
+    its example drivers import jax, flax, optax or the JAX package."""
     text = (REPO / rel).read_text()
     assert not _JAX_IMPORT.search(text), rel
 
@@ -70,3 +75,52 @@ def test_registry_holds_every_jax_id():
             gft.make(env_id)
         with pytest.raises(ValueError, match="requires an AirSim-compatible client"):
             gft_jax.make(env_id)
+
+
+def _flags(path: Path):
+    """The option strings of every ``add_argument`` call of a script."""
+    import ast
+
+    return {arg.value for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"
+            for arg in node.args if isinstance(arg, ast.Constant)}
+
+
+def test_eight_torch_examples():
+    assert len(TORCH_EXAMPLES) == 8
+
+
+@pytest.mark.parametrize("name", TORCH_EXAMPLES)
+def test_torch_example_takes_its_jax_twins_flags(name):
+    """Each example driver of the port beside its JAX twin takes every flag
+    of the twin; the GPU is its default, ``--cpu`` the host."""
+    twin = REPO / "examples" / name[len("torch_"):]
+    want = _flags(twin)
+    assert want and want <= _flags(REPO / "examples" / name)
+    if "--cpu" in want:
+        assert '"cpu" if args.cpu else "cuda"' in (REPO / "examples" / name).read_text()
+
+
+def _run_example(*argv):
+    import subprocess
+    import sys
+
+    return subprocess.run([sys.executable, str(REPO / "examples" / argv[0]), *argv[1:]],
+                          capture_output=True, text=True, timeout=300, cwd=str(REPO))
+
+
+def test_torch_run_shepherding_smoke():
+    """examples/torch_run_shepherding.py (reference shepherding/test.py)
+    runs an episode loop end to end on the host."""
+    out = _run_example("torch_run_shepherding.py", "--cpu", "-N", "1", "--steps", "3")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip()
+
+
+def test_torch_run_coverage_strict_expert_smoke():
+    """examples/torch_run_coverage.py --strict-expert completes an episode
+    with its restart-on-AssertionError loop (reference test.py:53-59)."""
+    out = _run_example("torch_run_coverage.py", "-e", "--strict-expert", "-n", "1", "--cpu")
+    assert out.returncode == 0, out.stderr[-800:]
+    assert "Expert" in out.stdout
+    assert "Reward over 1 episodes" in out.stdout
