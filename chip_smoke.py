@@ -224,6 +224,20 @@ Phases, each printing one line:
    map), ``torch_run_shepherding.py`` (single and batched) and
    ``torch_train_flocking_large.py``, each a subprocess of a few steps,
    all at once; each must exit with 0.
+36. the pipelines of ``tools/train_quality_torch.py`` at full width with few
+   iterations, through its functions: flocking BC (FlockingRelative-v0
+   N=100, ``AggregationGNN(4, (128, 128))``, 16 iterations of 8 envs x 8
+   steps on ``cosine_decay_schedule(1e-3, 16, alpha=0.03)``): every
+   update's Adam ``lr`` equal to the schedule's, K1 exactly once a reset
+   draw, the first loss a CPU copy's within 1e-5 relative; flocking DAgger,
+   2 iterations; VRP-label BC on phase 17's banks and phase 19's solver,
+   2 envs x 4 states labelled in both descent orders, two models from equal
+   weights trained 2 epochs, K5 once a rollout step and once a collect and
+   an expert step of each evaluation.  The flocking closed loop at 8 envs x
+   20 steps in its three modes: equal reset states, finite rewards, the
+   expert's cost below random's.  Then K1 "full" at B=8 and B=64, N=100
+   (the closed loop's and a B=64 reset's states, against plain as phase
+   21 holds it) and K5 at B=32, R=4, T=996 (bitwise), timed with bounds.
 
 Then one JSON line describing each kernel (its time, its plain version's,
 and its bound: the larger of the operations it must do over the f32 peak
@@ -1707,6 +1721,29 @@ def replay_coverage_collect(env, params, gen_state, batch, n_envs: int, n_steps:
         state, obs, _, _, _ = env.step_env(None, state, view["label"][:, t], params)
 
 
+def k5_state_case(params, state) -> dict:
+    """K5 on the greedy expert's operands at a CoverageARL-v0 state: bitwise
+    equal to plain, its time, the plain version's and its bound."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import rowmin as k5
+
+    n_envs, t = state.graph.shape[0], params.max_targets
+    rowidx = (state.graph[:, None] * t + state.robot_loc).to(torch.int32).contiguous()
+    blocked = ((state.visited >= 1.0) | ~params.bank["target_mask"][state.graph.long()])
+    k5_args = (rowidx, blocked.contiguous(), params.bank["cost_rows_pad"])
+    case = f"CoverageARL B={n_envs} R={params.n_robots} T={t}"
+    if not torch.equal(k5.packed_greedy_min(*k5_args), k5.packed_greedy_min_reference(*k5_args)):
+        raise AssertionError(f"K5 differs from plain at {case}")
+    rows = n_envs * params.n_robots * k5_args[2].shape[1]
+    return {"case": case, "B": n_envs, "R": params.n_robots, "T": t,
+            "Tp": k5_args[2].shape[1],
+            "ms": time_ms(lambda: k5.packed_greedy_min(*k5_args)),
+            "plain_ms": time_ms(lambda: k5.packed_greedy_min_reference(*k5_args)),
+            "library_ms": None,
+            **bound(2 * rows, rows * 2 + nbytes(rowidx, k5_args[1]) + rowidx.numel() * 4)}
+
+
 def phase_coverage_train(device: str, world, eval_params, n_envs: int, n_steps: int,
                          n_updates: int, eval_envs: int, eval_steps: int) -> dict:
     """Phase 17: ``CoverageImitationTrainer`` with ``EdgeGraphNet(64, 6)`` on
@@ -1717,7 +1754,6 @@ def phase_coverage_train(device: str, world, eval_params, n_envs: int, n_steps: 
     import torch
 
     from gym_flock_tpu_torch.models import EdgeGraphNet
-    from gym_flock_tpu_torch.ops import rowmin as k5
     from gym_flock_tpu_torch.parallel import CoverageImitationTrainer
 
     env, params = world
@@ -1759,19 +1795,7 @@ def phase_coverage_train(device: str, world, eval_params, n_envs: int, n_steps: 
                              f"relative {loss_rel:.3e}")
 
     # K5 at this slice's shape, on the first collect's state
-    t = params.max_targets
-    rowidx = (state0.graph[:, None] * t + state0.robot_loc).to(torch.int32).contiguous()
-    blocked = ((state0.visited >= 1.0) | ~params.bank["target_mask"][state0.graph.long()])
-    k5_args = (rowidx, blocked.contiguous(), params.bank["cost_rows_pad"])
-    if not torch.equal(k5.packed_greedy_min(*k5_args), k5.packed_greedy_min_reference(*k5_args)):
-        raise AssertionError("K5 differs from plain at B=8 R=4 T=996")
-    rows = n_envs * params.n_robots * k5_args[2].shape[1]
-    k5_timing = {"case": f"CoverageARL B={n_envs} R={params.n_robots} T={t}",
-                 "B": n_envs, "R": params.n_robots, "T": t, "Tp": k5_args[2].shape[1],
-                 "ms": time_ms(lambda: k5.packed_greedy_min(*k5_args)),
-                 "plain_ms": time_ms(lambda: k5.packed_greedy_min_reference(*k5_args)),
-                 "library_ms": None,
-                 **bound(2 * rows, rows * 2 + nbytes(rowidx, k5_args[1]) + rowidx.numel() * 4)}
+    k5_timing = k5_state_case(params, state0)
 
     # the other steps as train_step takes them, collect and update timed
     # apart (the first call of each paid one-time set-up)
@@ -3678,6 +3702,151 @@ def phase_examples() -> dict:
     return out
 
 
+QUALITY_ITERS = 16  # phase 36's flocking BC, on cosine_decay_schedule(1e-3, 16, 0.03)
+QUALITY_LOOP = (8, 20)  # phase 36's closed loop: envs x steps
+QUALITY_VRP = (2, 4)  # phase 36's VRP-labelled states: envs x steps
+QUALITY_EVAL = (8, 10)  # phase 36's coverage evaluations: envs x steps
+
+
+def load_quality_tool():
+    """``tools/train_quality_torch.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_quality_torch", ROOT / "tools" / "train_quality_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_closed_loop(what: str, entry: dict, probe: dict) -> None:
+    """The three modes from equal resets, finite rewards, and the expert's
+    cost below random's."""
+    import torch
+
+    resets = probe["resets"]
+    if not all(torch.equal(resets["policy"], x) for x in resets.values()):
+        raise AssertionError(f"{what}: the closed loop's modes start from different resets")
+    ep = entry["episode_reward_200_steps"]
+    if not all(math.isfinite(ep[m]) for m in ("policy", "expert", "random")):
+        raise AssertionError(f"{what}: closed-loop rewards {ep}")
+    if not ep["expert"] > ep["random"]:
+        raise AssertionError(f"{what}: the expert's cost {-ep['expert']} is not below "
+                             f"random's {-ep['random']}")
+
+
+def phase_quality(device: str, world, eval_params) -> dict:
+    """Phase 36: the training-quality pipelines of
+    ``tools/train_quality_torch.py`` at full width with few iterations:
+    flocking BC on its schedule, flocking DAgger, VRP-label BC on phase 17's
+    banks with phase 19's solver; K1 and K5 launch counts; then K1 "full" at
+    the collects' and the closed loop's reset shapes and K5 at the VRP
+    rollout's, each held to plain."""
+    import torch
+
+    import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.models import AggregationGNN
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import rowmin as k5
+    from gym_flock_tpu_torch.parallel import cosine_decay_schedule
+
+    tq = load_quality_tool()
+    loop_envs, loop_steps = QUALITY_LOOP
+    t0 = time.perf_counter()
+
+    # flocking BC: each step's Adam lr is the schedule's, K1 once a reset
+    # draw, the first loss a CPU copy's
+    _sync()
+    reset_counts()
+    probe = {}
+    bc = tq.run_flocking(device, n_iters=QUALITY_ITERS, eval_envs=loop_envs,
+                         eval_steps=loop_steps, probe=probe)
+    _sync()
+    bc_k1 = k1.launches
+    if bc_k1 != bc["reset_draws"] or k5.launches != 0:
+        raise AssertionError(f"flocking BC: K1 {bc_k1} launches for {bc['reset_draws']} "
+                             f"reset draws, K5 {k5.launches}")
+    schedule = cosine_decay_schedule(1e-3, QUALITY_ITERS, alpha=0.03)
+    want_lrs = [schedule(i) for i in range(QUALITY_ITERS)]
+    if probe["lrs"] != want_lrs:
+        raise AssertionError(f"flocking BC: Adam's lr {probe['lrs']} against the schedule's "
+                             f"{want_lrs}")
+    check_closed_loop("flocking BC", bc, probe)
+    cpu = AggregationGNN(k_hops=4, hidden=(128, 128))
+    cpu.load_state_dict({k: v.cpu() for k, v in probe["initial_weights"].items()})
+    feats, adj, acts = (b.cpu() for b in probe["first_batch"])
+    with torch.no_grad():
+        cpu_loss = float(torch.mean((cpu(feats, adj) - acts) ** 2))
+    loss_rel = abs(bc["train"]["loss_first"] - cpu_loss) / abs(cpu_loss)
+    if not loss_rel < 1e-5:
+        raise AssertionError(f"flocking BC: first loss {bc['train']['loss_first']} against "
+                             f"{cpu_loss} on the CPU copy: relative {loss_rel:.3e}")
+    if not all(math.isfinite(v) for v in (bc["heldout_action_mse"], bc["predict_zero_mse"])):
+        raise AssertionError(f"flocking BC: held-out MSE {bc['heldout_action_mse']}")
+    loop_x = probe["resets"]["policy"]
+
+    # flocking DAgger, two iterations
+    reset_counts()
+    probe = {}
+    dg = tq.run_flocking_dagger(device, n_iters=2, eval_envs=loop_envs, eval_steps=loop_steps,
+                                probe=probe)
+    _sync()
+    dg_k1 = k1.launches
+    if dg_k1 != dg["reset_draws"] or k5.launches != 0:
+        raise AssertionError(f"flocking DAgger: K1 {dg_k1} launches for "
+                             f"{dg['reset_draws']} reset draws, K5 {k5.launches}")
+    check_closed_loop("flocking DAgger", dg, probe)
+    if not all(math.isfinite(v) for v in (dg["train"]["loss_first"], dg["train"]["loss_last"])):
+        raise AssertionError(f"flocking DAgger: losses {dg['train']}")
+
+    # VRP-label BC: the greedy rollout (K5 a step) and the evaluations (K5
+    # a collect step and an expert step, two banks, two models)
+    env, params = world
+    n_envs, n_steps = QUALITY_VRP
+    eval_envs, eval_steps = QUALITY_EVAL
+    reset_counts()
+    probe = {}
+    vr = tq.run_bc_vrp(device, n_envs=n_envs, n_steps=n_steps, n_epochs=2,
+                       minibatch=n_envs * n_steps // 2, eval_envs=eval_envs,
+                       eval_steps=eval_steps, world=(env, params, eval_params), probe=probe)
+    _sync()
+    vr_k5 = check_k5_count("bc_vrp", n_steps + 2 * 2 * 2 * eval_steps)
+    for name, labels in probe["labels"].items():
+        if labels.shape != (n_envs * n_steps, params.n_robots) or not (
+                (labels >= 0) & (labels < params.n_actions)).all():
+            raise AssertionError(f"bc_vrp {name} labels {labels.shape} out of range")
+    a, b = (probe["initial_weights"][n] for n in ("or_default", "last_accept"))
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("bc_vrp: the two models start from different weights")
+    if not all(math.isfinite(m["loss_last"]) for m in vr["models"].values()):
+        raise AssertionError(f"bc_vrp: losses {vr['models']}")
+    seconds = time.perf_counter() - t0
+
+    # the kernels at this slice's shapes (comparison and timing only)
+    fenv, fp = gft.make("FlockingRelative-v0")
+    big_x, _ = fenv.reset_env(torch.Generator(device=device).manual_seed(SEED), fp, 64)
+    k1_errs, k1_timings = [], []
+    for x in (loop_x, big_x.x):
+        k1_errs.append(k1_reset_check(x, fp.comm_radius, fp.comm_radius2))
+        k1_timings.append(k1_timing(x, fp.comm_radius, fp.comm_radius2, "full", plain=True))
+    arl_state, _ = env.reset_env(torch.Generator(device=device).manual_seed(SEED), params, 32)
+    k5_timing = k5_state_case(params, arl_state)
+    return {"seconds": seconds,
+            "flocking_bc": {"train": bc["train"], "heldout_action_mse": bc["heldout_action_mse"],
+                            "predict_zero_mse": bc["predict_zero_mse"],
+                            "episode": bc["episode_reward_200_steps"], "k1_launches": bc_k1,
+                            "loss_vs_cpu_rel": loss_rel},
+            "flocking_dagger": {"train": dg["train"], "episode": dg["episode_reward_200_steps"],
+                                "k1_launches": dg_k1},
+            "bc_vrp": {"label_flip_rate": vr["label_flip_rate"],
+                       "label_seconds": vr["label_seconds"], "k5_launches": vr_k5,
+                       "heldout_ratio": {n: m["closedloop_heldout"]["reward_ratio"]
+                                         for n, m in vr["models"].items()}},
+            "k1_launches": bc_k1 + dg_k1, "k5_launches": vr_k5,
+            "k1_vs_plain": {k: max(e[k] for e in k1_errs) for k in k1_errs[0]},
+            "k1_timings": k1_timings, "k5_timing": k5_timing}
+
+
 def main() -> int:
     import torch
 
@@ -3921,6 +4090,15 @@ def main() -> int:
     t35 = phase_examples()
     print("phase 35 examples/torch_*.py on the card: " + json.dumps(t35))
 
+    # 36. the training-quality pipelines at full width, few iterations
+    t0 = time.perf_counter()
+    t36 = phase_quality(device, world, eval_params)
+    _sync()
+    t36["phase_seconds"] = time.perf_counter() - t0
+    print(f"phase 36 train_quality_torch pipelines (flocking BC {QUALITY_ITERS} iterations, "
+          f"flocking DAgger 2, bc_vrp {QUALITY_VRP[0]} x {QUALITY_VRP[1]} states) in "
+          f"{t36['phase_seconds']:.2f} s: " + json.dumps(t36))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
@@ -3934,18 +4112,18 @@ def main() -> int:
                      + t14["k1_collect_launches"] + t15["k1_launches"] + t16["k1_launches"]
                      + t20["k1_launches"] + t21["k1_launches"] + t25["k1_launches"]
                      + t27["k1_launches"] + t31["k1_launches"] + t32["k1_launches"]
-                     + t34["k1_launches"]),
+                     + t34["k1_launches"] + t36["k1_launches"]),
         "max_abs_err": max(k["worst"]["abs"], k3["k1_dense_a"]["abs"],
                            sr["k1_core_vs_plain"]["abs"], sr["k1_full_vs_plain"]["abs"],
                            t21["k1_vs_plain"]["abs"], t25["k1_vs_plain"]["abs"],
                            t27["legacy"]["FlockingRelative-v0"]["k1_vs_plain"]["abs"],
-                           t30["k1_worst"]["abs"]),
+                           t30["k1_worst"]["abs"], t36["k1_vs_plain"]["abs"]),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"],
         "bound_by": big["bound_by"],
         "library_ms": None,
-        "timings": k["timings"] + [t25["k1_timing"]],
+        "timings": k["timings"] + [t25["k1_timing"]] + t36["k1_timings"],
         "ring_tiles": {key: t30[key] for key in ("P", "k1_ring_tiles_ms", "k1_gather_tiles_ms",
                                                  "k1_whole_ms")},
     }, {
@@ -3956,14 +4134,14 @@ def main() -> int:
         "launches": (xf["launches"] + cv["launches"] + t17["k5_launches"]
                      + t17["eval_k5_launches"] + t18["k5_launches"] + t19["k5_launches"]
                      + t26["k5_launches"] + t27["k5_launches"] + t32["k5_launches"]
-                     + t34["k5_launches"]),
+                     + t34["k5_launches"] + t36["k5_launches"]),
         "max_abs_err": k5r["max_abs_err"],
         "ms": k5_big["ms"],
         "plain_ms": k5_big["plain_ms"],
         "bound_ms": k5_big["bound_ms"],
         "bound_by": k5_big["bound_by"],
         "library_ms": None,
-        "timings": k5r["cases"][:2] + [t17["k5_timing"]],
+        "timings": k5r["cases"][:2] + [t17["k5_timing"], t36["k5_timing"]],
     }, {
         "name": "sparse_sums",
         "route": "cuda",

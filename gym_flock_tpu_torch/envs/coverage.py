@@ -265,8 +265,17 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
             start_region = (d <= level) & mask
         else:
             start_region = mask
-        robot_loc = torch.multinomial(start_region.float(), r, replacement=False,
-                                      generator=generator).to(torch.int32)
+        drawn = torch.multinomial(start_region.float(), r, replacement=False,
+                                  generator=generator)
+        # with fewer than R weighted nodes (R above a small graph's target
+        # count), jax.random.choice's Gumbel top-k fills the rest with the
+        # unweighted nodes of lowest index; torch leaves that fill to
+        # topk's tie order, so it is taken here from a stable argsort
+        n_weighted = start_region.sum(dim=1, keepdim=True)
+        unweighted = torch.argsort(start_region.to(torch.uint8), dim=1, stable=True)
+        j = torch.arange(r, device=dev)
+        fill = unweighted.gather(1, (j - n_weighted).clamp(min=0))
+        robot_loc = torch.where(j < n_weighted, drawn, fill).to(torch.int32)
         k_active = torch.floor(n_targets * params.frac_active_targets).to(torch.int32)
         scores = torch.where(mask, torch.rand(n_envs, t, generator=generator, device=dev),
                              math.inf)

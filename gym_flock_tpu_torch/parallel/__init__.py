@@ -28,6 +28,7 @@ from gym_flock_tpu_torch.parallel.train import (
     LargeFlockingImitationTrainer,
     collect_flocking_batch,
     collect_large_flocking_batch,
+    cosine_decay_schedule,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -67,6 +68,7 @@ __all__ = [
     "action_edge_logits",
     "DaggerTrainer",
     "DaggerState",
+    "cosine_decay_schedule",
     "collect_vrp_labeled_batch",
     "vrp_label_states",
 ]

@@ -29,6 +29,7 @@ from gym_flock_tpu_torch.envs.flocking import (
 from gym_flock_tpu_torch.models.gnn import AggregationGNN
 from gym_flock_tpu_torch.parallel.distributed import local_shard_size, rank_generator
 from gym_flock_tpu_torch.parallel.train import (
+    LearningRate,
     _ImitationTrainer,
     all_reduce_mean,
     restore_checkpoint,
@@ -54,10 +55,11 @@ class DaggerState:
 class DaggerTrainer(_ImitationTrainer):
     """DAGGER on ``FlockingRelative-v0`` with :class:`AggregationGNN` on the
     port's ``flocking_features`` (mean-pooled per ``params.mean_pooling``)
-    and the Turner expert; Adam as the other trainers set it."""
+    and the Turner expert; Adam as the other trainers set it, at a float
+    learning rate or a schedule ``step -> float``."""
 
     def __init__(self, env: FlockingRelativeEnv, env_params,
-                 model: Optional[AggregationGNN] = None, learning_rate: float = 1e-3,
+                 model: Optional[AggregationGNN] = None, learning_rate: LearningRate = 1e-3,
                  capacity: int = 4096, beta_decay: float = 0.7, device="cuda"):
         super().__init__(env, env_params, model or AggregationGNN(), learning_rate, device)
         self.capacity = capacity
@@ -185,7 +187,9 @@ def make_sharded_iteration(trainer: DaggerTrainer, group=None, n_envs: int = 16,
     weights drawn from ``generator`` (the same on every rank), a fresh Adam
     and an empty local buffer; ``step(generator, beta) -> loss`` runs one
     iteration and returns the loss averaged over the group.  ``trainer``'s
-    ``model`` and ``optimizer`` are the ones trained.
+    ``model`` and ``optimizer`` are the ones trained, at ``trainer``'s
+    learning rate or schedule (read at the count of local updates, equal on
+    every rank).
     """
     local_envs = local_shard_size(n_envs, group)
     local = DaggerTrainer(trainer.env, trainer.env_params, trainer.model,

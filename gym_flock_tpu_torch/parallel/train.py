@@ -6,7 +6,10 @@ the checkpoints).
 A train step collects a fresh batch of expert data, then takes one update:
 the MSE of the policy's actions to the Turner expert's, its gradients, and
 one step of Adam as optax's ``adam`` takes it (``eps`` outside the
-bias-corrected square root, which ``torch.optim.Adam`` shares).
+bias-corrected square root, which ``torch.optim.Adam`` shares).  The
+learning rate is a float or, as optax's ``adam`` takes it, a schedule
+``step -> float`` (:func:`cosine_decay_schedule`) read at the count of
+updates already taken: the first update uses ``schedule(0)``.
 
 Randomness comes from one explicit ``torch.Generator``, on the device the
 env and the model run on: the weights' initialisation, then the resets of
@@ -20,8 +23,9 @@ from __future__ import annotations
 
 import copy
 import functools
+import math
 import os
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -32,6 +36,7 @@ from gym_flock_tpu_torch.parallel.rollout import rollout
 
 __all__ = [
     "FlockingImitationTrainer",
+    "cosine_decay_schedule",
     "LargeFlockingImitationTrainer",
     "collect_flocking_batch",
     "collect_large_flocking_batch",
@@ -40,6 +45,27 @@ __all__ = [
     "make_dp_train_step",
     "all_reduce_mean",
 ]
+
+
+LearningRate = Union[float, Callable[[int], float]]
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    """optax's ``cosine_decay_schedule`` (exponent 1), in double precision:
+    ``init_value * ((1 - alpha) * 0.5 * (1 + cos(pi * min(step, decay_steps)
+    / decay_steps)) + alpha)``, so ``alpha * init_value`` from
+    ``decay_steps`` on."""
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine_decay_schedule requires positive decay_steps, "
+                         f"got decay_steps={decay_steps}")
+
+    def schedule(step: int) -> float:
+        count = min(float(step), float(decay_steps))
+        cosine_decay = 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine_decay + alpha)
+
+    return schedule
 
 
 def _flat(v: torch.Tensor) -> torch.Tensor:
@@ -137,8 +163,9 @@ def all_reduce_mean(tensors, group=None) -> None:
 
 def make_dp_train_step(trainer, local_loss_fn: Callable[[torch.Generator], torch.Tensor],
                        group=None) -> Callable[[torch.Generator], torch.Tensor]:
-    """The data-parallel train step of ``trainer`` (anything with ``model``,
-    ``optimizer`` and ``step``) over the ranks of ``group``.
+    """The data-parallel train step of ``trainer`` (an imitation trainer:
+    its ``model``, ``optimizer`` and ``adam_step``) over the ranks of
+    ``group``.
 
     ``step(generator)`` calls ``local_loss_fn(rank_generator)``, this rank's
     loss on its own collect, backpropagates it, averages the gradients and
@@ -162,8 +189,7 @@ def _averaged_update(trainer, loss: torch.Tensor, group) -> torch.Tensor:
     all_reduce_mean([p.grad for p in trainer.model.parameters() if p.grad is not None], group)
     loss = loss.detach().clone()
     all_reduce_mean([loss], group)
-    trainer.optimizer.step()
-    trainer.step += 1
+    trainer.adam_step()
     return loss
 
 
@@ -171,25 +197,41 @@ class _ImitationTrainer:
     """Adam on the MSE to the expert; subclasses say how a batch is collected
     and how the model reads it."""
 
-    def __init__(self, env, env_params, model: torch.nn.Module, learning_rate: float, device):
+    def __init__(self, env, env_params, model: torch.nn.Module, learning_rate: LearningRate,
+                 device):
         self.env = env
         self.env_params = env_params
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.learning_rate = learning_rate
-        self.optimizer = self._adam()
         self.step = 0
+        self.optimizer = self._adam()
 
     def _adam(self) -> torch.optim.Adam:
-        return torch.optim.Adam(self.model.parameters(), lr=self.learning_rate,
+        return torch.optim.Adam(self.model.parameters(), lr=self.lr_at(self.step),
                                 betas=(0.9, 0.999), eps=1e-8)
+
+    def lr_at(self, step: int) -> float:
+        """The learning rate of the update taken after ``step`` updates."""
+        lr = self.learning_rate
+        return float(lr(step)) if callable(lr) else float(lr)
+
+    def adam_step(self) -> None:
+        """Adam's step on the gradients at ``lr_at(self.step)``, then one more
+        update counted.  The step comes from ``self.step``, which a
+        checkpoint keeps, so a resumed run goes on with the schedule."""
+        lr = self.lr_at(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
 
     def init(self, generator: torch.Generator) -> None:
         """flax's initialisation of the weights from ``generator``, a fresh
         Adam state and step 0."""
         self.model.reset_parameters(generator)
-        self.optimizer = self._adam()
         self.step = 0
+        self.optimizer = self._adam()
 
     def loss_fn(self, *batch) -> torch.Tensor:
         """MSE to the expert's actions, the mean over every element."""
@@ -204,8 +246,7 @@ class _ImitationTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._batch_loss(batch)
         loss.backward()
-        self.optimizer.step()
-        self.step += 1
+        self.adam_step()
         return loss.detach()
 
     def collect(self, generator: torch.Generator, n_envs: int, n_steps: int):
@@ -251,7 +292,7 @@ class FlockingImitationTrainer(_ImitationTrainer):
     :class:`AggregationGNN` over ``(features, adjacency)`` batches."""
 
     def __init__(self, env, env_params, model: Optional[AggregationGNN] = None,
-                 learning_rate: float = 1e-3, device="cuda"):
+                 learning_rate: LearningRate = 1e-3, device="cuda"):
         super().__init__(env, env_params, model or AggregationGNN(), learning_rate, device)
 
     def collect(self, generator, n_envs, n_steps):
@@ -275,7 +316,7 @@ class LargeFlockingImitationTrainer(_ImitationTrainer):
     aggregation on K2 (or K4 through ``aggregate_fn``)."""
 
     def __init__(self, env, env_params, model: Optional[LargeAggregationGNN] = None,
-                 learning_rate: float = 1e-3, device="cuda"):
+                 learning_rate: LearningRate = 1e-3, device="cuda"):
         model = model or LargeAggregationGNN(comm_radius2=float(env_params.comm_radius2))
         super().__init__(env, env_params, model, learning_rate, device)
 

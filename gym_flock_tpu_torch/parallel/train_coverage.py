@@ -26,7 +26,12 @@ import torch.nn.functional as F
 from gym_flock_tpu_torch.envs.coverage import CoverageEnv, CoverageParams
 from gym_flock_tpu_torch.models.gnn import EdgeGraphNet
 from gym_flock_tpu_torch.parallel.distributed import local_shard_size
-from gym_flock_tpu_torch.parallel.train import _flat, _ImitationTrainer, make_dp_train_step
+from gym_flock_tpu_torch.parallel.train import (
+    LearningRate,
+    _flat,
+    _ImitationTrainer,
+    make_dp_train_step,
+)
 
 __all__ = [
     "CoverageImitationTrainer",
@@ -97,10 +102,10 @@ def _graph(sample):
 class CoverageImitationTrainer(_ImitationTrainer):
     """Behaviour cloning of the greedy coverage expert into an
     :class:`EdgeGraphNet` (default ``latent=32, rounds=2``, as the JAX
-    package's)."""
+    package's); ``learning_rate`` a float or a schedule ``step -> float``."""
 
     def __init__(self, env: CoverageEnv, env_params: CoverageParams,
-                 model: Optional[EdgeGraphNet] = None, learning_rate: float = 1e-3,
+                 model: Optional[EdgeGraphNet] = None, learning_rate: LearningRate = 1e-3,
                  device="cuda"):
         model = model or EdgeGraphNet(latent=32, rounds=2, n_node_feat=env_params.n_node_feat,
                                       n_edge_feat=env_params.n_edge_feat)
@@ -230,7 +235,7 @@ class CoverageDaggerTrainer:
     """
 
     def __init__(self, env: CoverageEnv, env_params: CoverageParams,
-                 model: Optional[EdgeGraphNet] = None, learning_rate: float = 1e-3,
+                 model: Optional[EdgeGraphNet] = None, learning_rate: LearningRate = 1e-3,
                  capacity: int = 1024, beta_decay: float = 0.7, device="cuda"):
         self.inner = CoverageImitationTrainer(env, env_params, model, learning_rate, device)
         self.env = env

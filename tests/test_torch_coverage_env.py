@@ -318,3 +318,27 @@ def test_default_params_and_bank_build_on_the_card_by_default():
             CoverageEnv().default_params()
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             default_coverage_bank(n_graphs=1)
+
+
+def test_reset_with_fewer_weighted_nodes_than_robots_fills_as_jax():
+    """A graph of 3 targets and R=6 (a bank a registered id builds when its
+    ``n_robots`` exceeds a graph's target count): ``jax.random.choice``
+    takes the 3 weighted nodes, then the unweighted nodes of lowest index,
+    and so does the port, for every env of the batch."""
+    from gym_flock_tpu.envs import coverage_graph as jcg
+
+    res = jcg.DELTA
+    targets = np.stack([np.arange(3) * res, np.zeros(3)], axis=1)
+    bank = jcg.build_graph_bank([jcg.build_graph_spec(targets, 10, 6, res * 1.2, 10)])
+    jenv, jp = gft_jax.make("Coverage-v0", bank=bank, max_nodes=16)
+    tp = convert.coverage_params_from_jax(jp)
+    assert jp.n_robots == tp.n_robots == 6
+    js, _ = jax.vmap(lambda k: jenv.reset_env(k, jp))(jax.random.split(jax.random.key(0), 8))
+    ts, _ = CoverageEnv().reset_env(torch.Generator().manual_seed(0), tp, 8)
+    want = np.arange(6)
+    for b in range(8):
+        np.testing.assert_array_equal(np.sort(np.asarray(js.robot_loc[b])), want)
+        np.testing.assert_array_equal(np.sort(ts.robot_loc[b].numpy()), want)
+        # the weighted nodes come first, in the order drawn
+        assert set(ts.robot_loc[b, :3].tolist()) == {0, 1, 2}
+        np.testing.assert_array_equal(ts.robot_loc[b, 3:].numpy(), [3, 4, 5])

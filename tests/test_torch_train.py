@@ -10,6 +10,12 @@ Pallas aggregation in interpret mode.  Tolerance: the loss, the gradients
 and the updated weights within 1e-5 of the array's largest magnitude
 (at least 1), so that an element whose gradient is near zero is held to the
 same absolute bound as its layer.
+
+Under a learning-rate schedule the trainers take five updates against
+``optax.adam(schedule)`` (the flocking trainers on optax's own gradients,
+the DAGGER and coverage trainers on the port's gradients, held beside
+JAX's at the same tolerance), and each update's Adam ``lr`` must be the
+port's ``cosine_decay_schedule`` at the count of updates already taken.
 """
 import functools
 
@@ -24,18 +30,32 @@ import gym_flock_tpu as gft_jax
 import gym_flock_tpu_torch as gft
 from gym_flock_tpu.models import gnn as jgnn
 from gym_flock_tpu.ops import sparse_flocking as jsf
+from gym_flock_tpu.parallel import dagger as jdagger
 from gym_flock_tpu.parallel import train as jtrain
+from gym_flock_tpu.parallel import train_coverage as jtc
 from gym_flock_tpu_torch import convert
 from gym_flock_tpu_torch.models import LargeAggregationGNN
 from gym_flock_tpu_torch.ops import adjacency_matmul as k2
 from gym_flock_tpu_torch.ops import sparse_flocking as sf
+from gym_flock_tpu_torch.parallel import dagger as tdagger
+from gym_flock_tpu_torch.parallel import distributed as tdist
 from gym_flock_tpu_torch.parallel import train as tt
+from gym_flock_tpu_torch.parallel import train_coverage as tc
+from tests.test_torch_coverage_train import COVERAGE, _batch_np, _grad, _models, _pairs, _torch
+from tests.test_torch_coverage_env import _envs
 from tests.test_torch_flocking_env import SUM_TOL, _rel, grid_swarms
 
 torch.set_num_threads(2)
 
 TOL = 1e-5
 U_ATOL = 1e-4
+# decays over the first 3 of 5 updates, then holds alpha * init
+SCHEDULE = dict(init_value=1e-3, decay_steps=3, alpha=0.03)
+
+
+def _schedules():
+    """The JAX package's and the port's schedule of ``SCHEDULE``."""
+    return optax.cosine_decay_schedule(**SCHEDULE), tt.cosine_decay_schedule(**SCHEDULE)
 
 
 def _close(got, want, tol=TOL):
@@ -61,8 +81,9 @@ def _sparse_model_pair(cr2):
     return jmodel, model
 
 
-def _trainers(kind):
-    """The JAX and the port's trainer of one kind, with the same weights."""
+def _trainers(kind, scheduled=False):
+    """The JAX and the port's trainer of one kind, with the same weights;
+    Adam at 1e-3, or on ``SCHEDULE`` when ``scheduled``."""
     if kind == "dense":
         env_id, n = "FlockingRelative-v0", 12
     elif kind == "large":
@@ -71,16 +92,18 @@ def _trainers(kind):
         env_id, n = "FlockingSparse-v0", 256
     jenv, jp = gft_jax.make(env_id, n_agents=n)
     tenv, tp = gft.make(env_id, n_agents=n)
+    jlr, tlr = _schedules() if scheduled else (1e-3, 1e-3)
     if kind == "dense":
-        jtr = jtrain.FlockingImitationTrainer(jenv, jp)
-        ttr = tt.FlockingImitationTrainer(tenv, tp, device="cpu")
+        jtr = jtrain.FlockingImitationTrainer(jenv, jp, learning_rate=jlr)
+        ttr = tt.FlockingImitationTrainer(tenv, tp, learning_rate=tlr, device="cpu")
     elif kind == "large":
-        jtr = jtrain.LargeFlockingImitationTrainer(jenv, jp, interpret=True)
-        ttr = tt.LargeFlockingImitationTrainer(tenv, tp, device="cpu")
+        jtr = jtrain.LargeFlockingImitationTrainer(jenv, jp, learning_rate=jlr, interpret=True)
+        ttr = tt.LargeFlockingImitationTrainer(tenv, tp, learning_rate=tlr, device="cpu")
     else:
         jmodel, model = _sparse_model_pair(float(jp.comm_radius2))
-        jtr = jtrain.LargeFlockingImitationTrainer(jenv, jp, model=jmodel)
-        ttr = tt.LargeFlockingImitationTrainer(tenv, tp, model=model, device="cpu")
+        jtr = jtrain.LargeFlockingImitationTrainer(jenv, jp, model=jmodel, learning_rate=jlr)
+        ttr = tt.LargeFlockingImitationTrainer(tenv, tp, model=model, learning_rate=tlr,
+                                               device="cpu")
     carry = jtr.init(jax.random.key(3))
     convert.gnn_params_from_flax(carry[0], ttr.model)
     return (jtr, carry), ttr
@@ -99,10 +122,14 @@ def _batch(kind, ttr, seed):
     return [b.numpy().copy() for b in batch]
 
 
-@pytest.mark.parametrize("kind", ["dense", "large", "sparse"])
-def test_two_updates_equal_jax_and_optax(kind):
-    (jtr, (params, opt_state)), ttr = _trainers(kind)
-    for seed in (5, 6):
+@pytest.mark.parametrize("kind,n_updates,scheduled", [
+    pytest.param(kind, 2, False, id=kind) for kind in ("dense", "large", "sparse")] + [
+    pytest.param(kind, 5, True, id=f"{kind}-cosine-5") for kind in ("dense", "large", "sparse")])
+def test_two_updates_equal_jax_and_optax(kind, n_updates, scheduled):
+    """Two updates at a constant rate; five on ``SCHEDULE``, each update's
+    ``lr`` the port's schedule at the updates already taken."""
+    (jtr, (params, opt_state)), ttr = _trainers(kind, scheduled)
+    for i, seed in enumerate(range(5, 5 + n_updates)):
         batch = _batch(kind, ttr, seed)
         loss, grads = jax.value_and_grad(jtr.loss_fn)(params, *map(jnp.asarray, batch))
         updates, opt_state = jtr.tx.update(grads, opt_state, params)
@@ -116,7 +143,12 @@ def test_two_updates_equal_jax_and_optax(kind):
             _close(layer.bias.grad.numpy(), jg["bias"])
             _close(layer.weight.detach().numpy().T, jw["kernel"])
             _close(layer.bias.detach().numpy(), jw["bias"])
-    assert ttr.step == 2
+        assert ttr.optimizer.param_groups[0]["lr"] == ttr.lr_at(i)
+    assert ttr.step == n_updates
+    if scheduled:
+        assert ttr.lr_at(0) == SCHEDULE["init_value"]
+        assert ttr.lr_at(4) == pytest.approx(SCHEDULE["init_value"] * SCHEDULE["alpha"],
+                                             rel=1e-12)
 
 
 def test_collect_large_flocking_batch_equals_the_jax_step_loop():
@@ -216,23 +248,161 @@ def test_checkpoint_round_trips(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_fit_resume_reproduces_the_uninterrupted_run(tmp_path):
+def _check_resume(tmp_path, learning_rate):
     """Interrupt + resume == straight through: the same weights and losses."""
     env, params = gft.make("FlockingRelative-v0", n_agents=8)
-    full = tt.FlockingImitationTrainer(env, params, device="cpu")
+
+    def trainer():
+        return tt.FlockingImitationTrainer(env, params, learning_rate=learning_rate,
+                                           device="cpu")
+
+    full = trainer()
     losses_full = full.fit(torch.Generator().manual_seed(3), n_iters=4, n_envs=2, n_steps=2)
 
     path = str(tmp_path / "resume.pt")
-    part = tt.FlockingImitationTrainer(env, params, device="cpu")
+    part = trainer()
     first = part.fit(torch.Generator().manual_seed(3), n_iters=2, n_envs=2, n_steps=2,
                      ckpt_path=path, ckpt_every=1)
     # a "crash" after 2 steps: a new trainer resumes at step 2
-    resumed = tt.FlockingImitationTrainer(env, params, device="cpu")
+    resumed = trainer()
     rest = resumed.fit(torch.Generator().manual_seed(3), n_iters=4, n_envs=2, n_steps=2,
                        ckpt_path=path)
     assert len(rest) == 2 and resumed.step == 4
     assert first + rest == losses_full
     for a, b in zip(full.model.parameters(), resumed.model.parameters()):
+        assert torch.equal(a, b)
+    return resumed
+
+
+def test_fit_resume_reproduces_the_uninterrupted_run(tmp_path):
+    _check_resume(tmp_path, 1e-3)
+
+
+def test_fit_resume_under_a_schedule_reproduces_the_uninterrupted_run(tmp_path):
+    """The resumed run reads its schedule at the checkpoint's step (the
+    restored Adam state holds step 2's rate; update 3 must take
+    ``schedule(3)``, not ``schedule(0)``)."""
+    schedule = tt.cosine_decay_schedule(1e-2, 4, alpha=0.1)
+    resumed = _check_resume(tmp_path, schedule)
+    assert resumed.optimizer.param_groups[0]["lr"] == schedule(3) != schedule(1)
+
+
+def _dagger_pair(schedules):
+    jlr, tlr = schedules
+    jenv, jp = gft_jax.make("FlockingRelative-v0", n_agents=12)
+    jtr = jdagger.DaggerTrainer(jenv, jp, learning_rate=jlr)
+    state = jtr.init(jax.random.key(4))
+    env, params = gft.make("FlockingRelative-v0", n_agents=12)
+    ttr = tdagger.DaggerTrainer(env, params, learning_rate=tlr, device="cpu")
+    convert.gnn_params_from_flax(state.params, ttr.model)
+
+    def batches(seed):
+        xs = grid_swarms(6, 12, seed)
+        labels = np.random.RandomState(seed).uniform(-1, 1, size=(6, 12, 2))
+        return xs, labels.astype(np.float32)
+
+    def to_port(batch):
+        return tuple(torch.from_numpy(b) for b in batch)
+
+    def port_grads():
+        dense = {f"Dense_{i}": {"kernel": jnp.asarray(layer.weight.grad.numpy().T),
+                                "bias": jnp.asarray(layer.bias.grad.numpy())}
+                 for i, layer in enumerate(ttr.model.mlp.layers)}
+        return {"params": {"_MLP_0": dense}}
+
+    def pairs(tree):
+        return [(tree["params"]["_MLP_0"][f"Dense_{i}"], layer)
+                for i, layer in enumerate(ttr.model.mlp.layers)]
+
+    return (jtr._loss, jtr.tx, state.params, batches, to_port, port_grads, pairs, ttr,
+            lambda layer: layer.weight.grad.numpy(), lambda layer: layer.bias.grad.numpy())
+
+
+def _coverage_pair(schedules):
+    jlr, tlr = schedules
+    jenv, jp, tenv, tp, _ = _envs(*COVERAGE)
+    jmodel, variables, model = _models(tp)
+    jtr = jtc.CoverageImitationTrainer(jenv, jp, model=jmodel, learning_rate=jlr)
+    ttr = tc.CoverageImitationTrainer(tenv, tp, model=model, learning_rate=tlr, device="cpu")
+
+    def batches(seed):
+        return _batch_np(*COVERAGE, seed=seed - 5)
+
+    def port_grads():
+        tree = {"params": {}}
+        for i, mlp in enumerate(ttr.model.mlps()):
+            tree["params"][f"_MLP_{i}"] = {
+                f"Dense_{j}": {"kernel": jnp.asarray(_grad(layer.weight).T),
+                               "bias": jnp.asarray(_grad(layer.bias))}
+                for j, layer in enumerate(mlp.layers)}
+        return tree
+
+    def jloss(params, batch):
+        return jtr.loss_fn(params, {k: jnp.asarray(v) for k, v in batch.items()})
+
+    return (jloss, jtr.tx, variables, batches, _torch, port_grads,
+            lambda tree: _pairs(tree, ttr.model), ttr,
+            lambda layer: _grad(layer.weight), lambda layer: _grad(layer.bias))
+
+
+@pytest.mark.parametrize("name", ["dagger", "coverage"])
+def test_scheduled_updates_equal_optax(name):
+    """Five Adam updates of ``DaggerTrainer`` and ``CoverageImitationTrainer``
+    on ``SCHEDULE`` from the same flax weights: the loss and the gradients
+    against ``jax.value_and_grad`` at JAX's weights, the weights against
+    ``optax.adam(schedule)`` given the port's gradients (the coverage logit
+    head's last bias has a gradient of zero up to rounding, which Adam
+    would turn into +-lr by the sign of that rounding, see
+    ``tests/test_torch_coverage_train.py``), and each update's ``lr``."""
+    pair = _dagger_pair if name == "dagger" else _coverage_pair
+    (jloss, tx, params, batches, to_port, port_grads, pairs, ttr, wgrad,
+     bgrad) = pair(_schedules())
+    _, schedule = _schedules()
+    opt_state = tx.init(params)
+    for i in range(5):
+        batch = batches(5 + i)
+        args = (batch,) if isinstance(batch, dict) else tuple(map(jnp.asarray, batch))
+        loss, grads = jax.value_and_grad(jloss)(params, *args)
+        got = ttr.update(to_port(batch))
+        _close(float(got), float(loss))
+        updates, opt_state = tx.update(port_grads(), opt_state, params)
+        params = optax.apply_updates(params, updates)
+        for (jg, layer), (jw, _) in zip(pairs(grads), pairs(params)):
+            _close(wgrad(layer).T, jg["kernel"])
+            _close(bgrad(layer), jg["bias"])
+            _close(layer.weight.detach().numpy().T, jw["kernel"])
+            _close(layer.bias.detach().numpy(), jw["bias"])
+        assert ttr.optimizer.param_groups[0]["lr"] == schedule(i)
+    assert ttr.step == 5
+
+
+def test_dp_step_at_one_gloo_rank_follows_the_schedule(tmp_path):
+    """``make_sharded_train_step`` at world size 1 takes the same three
+    updates as ``update`` on the rank's batches, at the same scheduled
+    rates."""
+    import torch.distributed as dist
+
+    env, params = gft.make("FlockingRelative-v0", n_agents=8)
+    schedule = tt.cosine_decay_schedule(1e-2, 2, alpha=0.1)
+    dp, twin = (tt.FlockingImitationTrainer(env, params, learning_rate=schedule, device="cpu")
+                for _ in range(2))
+    dp.init(torch.Generator().manual_seed(0))
+    twin.init(torch.Generator().manual_seed(0))
+    tdist.initialize("gloo", f"file://{tmp_path / 'store'}", 1, 0)
+    try:
+        step = dp.make_sharded_train_step(None, n_envs=2, n_steps=2)
+        gen, replay = torch.Generator().manual_seed(1), torch.Generator().manual_seed(1)
+        for i in range(3):
+            loss = step(gen)
+            seed = int(torch.randint(0, 1 << 62, (1,), generator=replay))
+            want = twin.update(twin.collect(tdist.host_fold(seed, 0), 2, 2))
+            assert float(loss) == float(want)
+            assert dp.optimizer.param_groups[0]["lr"] == schedule(i)
+            assert twin.optimizer.param_groups[0]["lr"] == schedule(i)
+    finally:
+        dist.destroy_process_group()
+    assert dp.step == twin.step == 3
+    for a, b in zip(dp.model.parameters(), twin.model.parameters()):
         assert torch.equal(a, b)
 
 
