@@ -1,0 +1,7 @@
+"""The traced span's share in which no operation ran on the device (the
+union of the kernels, copies and sets in the profiler's trace)."""
+from portbench import readers
+
+
+def read(run):
+    return readers.idle_pct(run)

@@ -1,0 +1,7 @@
+"""In the cells whose step the host leads: kernels in the traced span over
+the env-steps it completed."""
+from portbench import readers
+
+
+def read(run):
+    return readers.launches_per_unit(run)
