@@ -22,6 +22,7 @@ from typing import Any, Dict, Generic, Tuple, TypeVar
 import torch
 
 from gym_flock_tpu_torch.core.spaces import Space
+from gym_flock_tpu_torch.utils.profiling import host_bool
 
 TParams = TypeVar("TParams")
 TState = TypeVar("TState")
@@ -134,7 +135,7 @@ def step_autoreset(
     """
     st, obs_step, reward, done, info = env.step_env(generator, state, action, params)
     new_state, new_obs = st, obs_step
-    if bool(done.any()):
+    if host_bool(done.any()):
         st_reset, obs_reset = env.reset_env(generator, params, done.shape[0])
         new_state = _select(done, st, st_reset)
         new_obs = _select(done, obs_step, obs_reset)

@@ -50,6 +50,7 @@ from gym_flock_tpu_torch.core.spaces import Box, DictSpace, MultiDiscrete
 from gym_flock_tpu_torch.envs import coverage_graph as cg
 from gym_flock_tpu_torch.ops.pairwise import nodes_within_radius
 from gym_flock_tpu_torch.ops.rowmin import MULT, pad_cost_rows, packed_greedy_min
+from gym_flock_tpu_torch.utils.profiling import host_bool
 
 __all__ = [
     "CoverageParams",
@@ -175,7 +176,7 @@ def _resolve_conflicts(cur: torch.Tensor, chosen: torch.Tensor, collision_checks
     rounds = 0
     while True:
         pending = nl == -1
-        if not bool(pending.any()):
+        if not host_bool(pending.any()):
             return nl, rounds
         rounds += 1
         visible = is_stay[:, None, :] | (j_lt_i & ~pending[:, None, :])

@@ -36,6 +36,7 @@ from gym_flock_tpu_torch.ops.flocking_sums import (
 )
 from gym_flock_tpu_torch.ops.pairwise import mean_pool_normalize, radius_adjacency
 from gym_flock_tpu_torch.utils import formations
+from gym_flock_tpu_torch.utils.profiling import host_bool, span
 
 __all__ = [
     "FlockingParams",
@@ -527,18 +528,21 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         draw.  After ``params.max_reset_tries`` draws an env that never
         accepted keeps its LAST draw, as the JAX ``while_loop`` does.
         """
-        x = self._draw(generator, params, n_envs)
-        ok = self._reset_accept(x, params)
-        tries = 1
-        while tries < params.max_reset_tries and not bool(ok.all()):
-            x_new = self._draw(generator, params, n_envs)
-            ok_new = self._reset_accept(x_new, params)
-            x = torch.where(ok[:, None, None], x, x_new)
-            ok = ok | ok_new
-            tries += 1
-        self.last_reset_tries = tries
-        state = _state_from_x(x)
-        return state, self._obs(state, params)
+        with span("gft.reset"):
+            with span("gft.reset.draw"):
+                x = self._draw(generator, params, n_envs)
+                ok = self._reset_accept(x, params)
+            tries = 1
+            while tries < params.max_reset_tries and not host_bool(ok.all()):
+                with span("gft.reset.draw"):
+                    x_new = self._draw(generator, params, n_envs)
+                    ok_new = self._reset_accept(x_new, params)
+                x = torch.where(ok[:, None, None], x, x_new)
+                ok = ok | ok_new
+                tries += 1
+            self.last_reset_tries = tries
+            state = _state_from_x(x)
+            return state, self._obs(state, params)
 
     def init_state(self, x: torch.Tensor, params: FlockingParams) -> FlockingState:
         """A state from an externally supplied ``[B, N, 4]`` tensor."""
@@ -602,24 +606,26 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
             centralized = params.centralized
         x = state.x
         carry = self._fused_carry_init(x, params)
-        (_, _, s_gx, s_gy, s_dvx, s_dvy), carry = self._fused_pass_carry(
-            x, params, centralized, carry
-        )
-        traj: Dict[str, torch.Tensor] = {}
-        for t in range(n_steps):
-            controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
-            u = self._rollout_action(controls, params)
-            x = self._rollout_integrate(x, u, params, generator)
-            (values, network, s_gx, s_gy, s_dvx, s_dvy), carry = self._fused_pass_carry(
+        with span("gft.pair_pass"):
+            (_, _, s_gx, s_gy, s_dvx, s_dvy), carry = self._fused_pass_carry(
                 x, params, centralized, carry
             )
-            step = {"u": u, "values": values, "network": network,
-                    "reward": _instant_cost(x)}
-            if not traj:  # preallocate: the stored network dominates memory
-                traj = {k: v.new_empty((v.shape[0], n_steps) + v.shape[1:])
-                        for k, v in step.items()}
-            for k, v in step.items():
-                traj[k][:, t] = v
+        traj: Dict[str, torch.Tensor] = {}
+        for t in range(n_steps):
+            with span("gft.step"):
+                controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
+                u = self._rollout_action(controls, params)
+                x = self._rollout_integrate(x, u, params, generator)
+                with span("gft.pair_pass"):
+                    (values, network, s_gx, s_gy, s_dvx, s_dvy), carry = (
+                        self._fused_pass_carry(x, params, centralized, carry))
+                step = {"u": u, "values": values, "network": network,
+                        "reward": _instant_cost(x)}
+                if not traj:  # preallocate: the stored network dominates memory
+                    traj = {k: v.new_empty((v.shape[0], n_steps) + v.shape[1:])
+                            for k, v in step.items()}
+                for k, v in step.items():
+                    traj[k][:, t] = v
         final = dataclasses.replace(state, x=x, time=state.time + n_steps)
         return final, traj
 

@@ -29,6 +29,7 @@ from gym_flock_tpu_torch.core.env import Env, EnvState
 from gym_flock_tpu_torch.core.spaces import Box
 from gym_flock_tpu_torch.ops.adjacency_matmul import adjacency_matmul
 from gym_flock_tpu_torch.ops.flocking_sums import flocking_sums_block
+from gym_flock_tpu_torch.utils.profiling import host_bool
 
 __all__ = ["FlockingMultiParams", "FlockingMultiState", "FlockingMultiEnv"]
 
@@ -127,7 +128,7 @@ class FlockingMultiEnv(Env[FlockingMultiParams, FlockingMultiState]):
         x = self._draw(generator, params, n_envs)
         ok = self._reset_accept(x, params)
         tries = 1
-        while tries < params.max_reset_tries and not bool(ok.all()):
+        while tries < params.max_reset_tries and not host_bool(ok.all()):
             x_new = self._draw(generator, params, n_envs)
             ok_new = self._reset_accept(x_new, params)
             x = torch.where(ok[:, None, None], x, x_new)

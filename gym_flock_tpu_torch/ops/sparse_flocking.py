@@ -45,6 +45,7 @@ import torch
 from gym_flock_tpu_torch.ops import adjacency_matmul as k2
 from gym_flock_tpu_torch.ops import flocking_sums as k1
 from gym_flock_tpu_torch.ops.flocking_sums import N_OUT, check_float_type, float4_rows
+from gym_flock_tpu_torch.utils.profiling import host_bool
 
 __all__ = [
     "BLOCK",
@@ -334,7 +335,7 @@ def _dense_sums(x, comm_radius, comm_radius2, channels):
 
 
 def _sparse_or_dense(x, perm, table, overflow, comm_radius, comm_radius2, channels):
-    if bool(overflow.any()):
+    if host_bool(overflow.any()):
         return _dense_sums(x, comm_radius, comm_radius2, channels)
     out = sparse_sums_sorted(permute(x, perm), table, comm_radius, comm_radius2, channels)
     return unsort(out, perm)
@@ -407,7 +408,7 @@ def flocking_sums_sparse_verlet(
     _check_x(x)
     disp2 = ((x[..., :2] - vstate.anchor) ** 2).sum(dim=-1).amax()
     half = 0.5 * _f32(skin, x.device)
-    if bool(disp2 > half * half):
+    if host_bool(disp2 > half * half):
         vstate = verlet_build(x, comm_radius, skin, k_max=vstate.table.shape[-1])
         verlet_rebuilds += 1
     out = _sparse_or_dense(x, vstate.perm, vstate.table, vstate.overflow,
@@ -437,7 +438,7 @@ def sparse_reset_accept(
     perm = hilbert_order(x, comm_radius)
     xs = permute(x, perm)
     table, overflow = block_pair_table(xs, prune_r, k_max)
-    if bool(overflow.any()):
+    if host_bool(overflow.any()):
         overflow_passes += 1
         s = k1.flocking_sums_block(x, x, 0, 0, comm_radius, comm_radius2, channels="full")
     else:
@@ -596,7 +597,7 @@ class _AdjacencyMatmulSparse(torch.autograd.Function):
         cr = torch.sqrt(_f32(comm_radius2, x.device))
         perm = hilbert_order(x, cr)
         table, overflow = block_pair_table(permute(x, perm), cr, k_max)
-        dense = bool(overflow.any())
+        dense = host_bool(overflow.any())
         out, deg = _adj_pass(x, h, perm, table, dense, comm_radius2, backward=False)
         ctx.args = (dense, comm_radius2)
         degc = torch.where(deg == 0, 1.0, deg)[..., None].to(out.dtype) if mean_pool else None

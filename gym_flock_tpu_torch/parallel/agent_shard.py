@@ -35,6 +35,7 @@ from gym_flock_tpu_torch.envs.flocking import FlockingParams, LargeFlockingEnv, 
 from gym_flock_tpu_torch.ops.adjacency_matmul import adjacency_matmul_block
 from gym_flock_tpu_torch.ops.flocking_sums import flocking_sums_block
 from gym_flock_tpu_torch.parallel.distributed import mesh_device_type
+from gym_flock_tpu_torch.utils.profiling import host_bool
 
 __all__ = [
     "make_flock_mesh",
@@ -338,7 +339,7 @@ def flocking_reset_sharded(generator: torch.Generator, params: FlockingParams, n
         flag = ok.all().to(torch.int32).reshape(1)
         if dp_group is not None:
             dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=dp_group)
-        return bool(flag)  # the same on every rank: it is all-reduced
+        return host_bool(flag)  # the same on every rank: it is all-reduced
 
     x = draw()
     ok = accept(x)

@@ -1,6 +1,8 @@
 """Profiling helpers (counterpart of ``gym_flock_tpu/utils/profiling.py``):
-a ``torch.profiler`` trace, and a step rate timed with CUDA events on the
-card (with the host clock on the CPU)."""
+a ``torch.profiler`` trace, a step rate timed with CUDA events on the card
+(with the host clock on the CPU), and the env paths' own instrumentation:
+named spans that appear in a trace only while a profiler runs, and a count
+of the host's reads of device values."""
 from __future__ import annotations
 
 import contextlib
@@ -9,7 +11,31 @@ from typing import Callable, Iterator
 
 import torch
 
-__all__ = ["trace", "measure_steps_per_second"]
+__all__ = ["trace", "measure_steps_per_second", "span", "host_bool"]
+
+# host reads of device values on the env paths in this process; only
+# host_bool adds to it
+syncs = 0
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler runs (the
+    span then shares the device trace's clock), else a shared no-op context:
+    off, a span costs one flag read, no sync and no device allocation."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def host_bool(t: torch.Tensor) -> bool:
+    """``bool(t)`` for a host decision on a device value, which waits for
+    the device: counted in ``syncs`` and traced as the span ``gft.sync``."""
+    global syncs
+    syncs += 1
+    with span("gft.sync"):
+        return bool(t)
 
 
 @contextlib.contextmanager
