@@ -31,7 +31,9 @@ Phases, each printing one line:
    contiguous, 4 bytes into its storage) run on K1 (3 launches) and equal
    those from a contiguous copy.
 5. main path, ``FlockingRelative-v0`` (N=100): ``batch_expert_rollout`` with
-   B=8192 and 8 steps; the reset's acceptance test must have run on K1.
+   B=8192 and 8 steps; the reset's acceptance test must have run on K1, and
+   every fused pass on K6 (9 launches), then 8 more steps timed alone (9
+   more).
 6. banks and K5 (``rowmin``) against its plain PyTorch version on the card:
    ``make("ExploreFullEnv-v0", device="cuda")`` on the real ARL facility map
    (T >= 4096 is asserted: no procedural fallback) and ``Coverage-v0``;
@@ -147,7 +149,9 @@ Phases, each printing one line:
    ``FlockingLeader-v0``, ``FlockingObstacle-v0``, ``FlockingStochastic-v0``
    and ``FlockingTwoFlocks-v0`` with B=1024, each ``reset_env`` and 8 steps
    of ``expert_rollout``.  K1 exactly once per reset draw (none for the
-   deterministic Obstacle and TwoFlocks resets), no other kernel; K1
+   deterministic Obstacle and TwoFlocks resets), K6 once a fused pass of
+   the four dense-network variants (the obstacle mask a kernel argument),
+   no other kernel; K1
    ("full") on each randomly drawn reset state against its plain version:
    the degree and min r^2 (channels 8 and 9, the acceptance test's)
    exactly, the sums as in phase 3.
@@ -238,6 +242,16 @@ Phases, each printing one line:
    expert's cost below random's.  Then K1 "full" at B=8 and B=64, N=100
    (the closed loop's and a B=64 reset's states, against plain as phase
    21 holds it) and K5 at B=32, R=4, T=996 (bitwise), timed with bounds.
+37. K6 (``dense_pass``) against its plain version at B=8192 and B=8, N=100
+   (reset draws), centralized and not, without and with an obstacle mask
+   (agents 0-3), writing into a trajectory's slots: the network bit for
+   bit, each sum within ``DENSE_TOL`` of the plain version's relative to
+   the summed magnitudes of its terms (``dense_pass_scales``), and the sums
+   alone equal to the full pass's.  The kernel (full, and sums alone: 10
+   launches queued back to back, over 10; one call alone as ``call_ms``),
+   the plain version and its bound (median of 7).  These checks' and
+   timings' launches are not counted in the kernel line's ``launches``,
+   which sums phases 5 and 21.
 
 Then one JSON line describing each kernel (its time, its plain version's,
 and its bound: the larger of the operations it must do over the f32 peak
@@ -248,6 +262,7 @@ non-zero before the last line; without a card it exits non-zero at once.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -292,6 +307,11 @@ HBM_BYTES = 3.35e12
 PAIR_TEST_FLOPS = 5
 PAIR_BODY_FLOPS = 30
 EDGE_CASES = ("band", "all in reach", "none in reach", "coincident pair")
+# K6's sums against the plain version's, relative to the summed magnitudes
+# of their terms: the same f32 terms, summed in f32 by the plain version,
+# in f32 chunks of at most 32 columns added in f64 by K6
+DENSE_TOL = 1e-5
+DENSE_QUEUED = 10  # K6 launches a timing queues back to back
 
 
 def _sync():
@@ -679,17 +699,19 @@ def check_strided_state(env, params, x) -> dict:
 
 
 def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
-    """Phase 5: FlockingRelative-v0's expert rollout (K1 in the reset)."""
+    """Phase 5: FlockingRelative-v0's expert rollout (K1 in the reset, K6
+    in every fused pass)."""
     import torch
 
     import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.ops import dense_flocking as k6
     from gym_flock_tpu_torch.ops import flocking_sums as k1
     from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout
 
     env, params = gft.make("FlockingRelative-v0", **overrides)
     gen = torch.Generator(device=device).manual_seed(SEED)
     _sync()
-    k1.launches = 0
+    k1.launches = k6.launches = 0
     t0 = time.perf_counter()
     final, traj = batch_expert_rollout(env, params, gen, n_envs, n_steps)
     _sync()
@@ -698,6 +720,8 @@ def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     tries = env.last_reset_tries
     if launches != tries or launches == 0:
         raise AssertionError(f"K1 launches {launches}, reset draws {tries}")
+    if k6.launches != n_steps + 1:
+        raise AssertionError(f"K6 launches {k6.launches}, not {n_steps + 1}")
     n = params.n_agents
     shapes = {"u": (n_envs, n_steps, n, 2), "values": (n_envs, n_steps, n, 6),
               "network": (n_envs, n_steps, n, n), "reward": (n_envs, n_steps)}
@@ -712,12 +736,122 @@ def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     env.expert_rollout(final, params, n_steps)
     _sync()
     roll_s = time.perf_counter() - t1
+    if k6.launches != 2 * (n_steps + 1):
+        raise AssertionError(f"K6 launches {k6.launches}, not {2 * (n_steps + 1)}")
     return {
-        "launches": launches, "reset_tries": tries, "seconds": seconds,
-        "rollout_seconds": roll_s,
+        "launches": launches, "reset_tries": tries, "k6_launches": k6.launches,
+        "seconds": seconds, "rollout_seconds": roll_s,
         "env_steps_per_s": n_envs * n_steps / seconds,
         "rollout_env_steps_per_s": n_envs * n_steps / roll_s,
     }
+
+
+def dense_pass_scales(x, cr, cr2, centralized: bool, obstacle_mask=None):
+    """``[B, N, 10]``: for each of K6's six values and four expert sums, the
+    summed magnitudes of its terms, from the plain version's f32 terms (the
+    closed form's: N |v_i| + sum_j |v_j|; under an obstacle mask, the
+    masked row sums')."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import dense_flocking as k6
+
+    dx, dy, dvx, dvy, r2 = k6.pairwise_channels(x, obstacle_mask)
+    adj = (r2 < cr2).to(x.dtype)
+    inv = 1.0 / r2
+    inv2 = inv * inv
+    terms = [dvx * adj, dx * inv2 * adj, dx * inv * adj, dvy * adj, dy * inv2 * adj,
+             dy * inv * adj]
+    grads = [k6.turner_potential_grad(d, r2, cr) for d in (dx, dy)]
+    if not centralized:
+        grads = [g * adj for g in grads]
+    scales = [t.double().abs().sum(dim=-1) for t in terms + grads]
+    if centralized and obstacle_mask is not None:
+        scales += [dvx.double().abs().sum(dim=-1), dvy.double().abs().sum(dim=-1)]
+    elif centralized:
+        n = x.shape[1]
+        for c in (2, 3):
+            v = x[..., c].double().abs()
+            scales.append(n * v + v.sum(dim=-1, keepdim=True))
+    else:
+        scales += [scales[0], scales[3]]
+    return torch.stack(scales, dim=-1)
+
+
+def hold_dense_pass(what: str, got, want, scales) -> float:
+    """K6's ``(values, network, *sums)`` against the plain version's: the
+    network bit for bit (where given), NaN in the same places, each sum
+    within DENSE_TOL of its scale; returns the largest error over its
+    scale.  ``scales`` lacks the six values' where ``want`` has none."""
+    import torch
+
+    if want[1] is not None and not torch.equal(got[1], want[1]):
+        raise AssertionError(f"{what}: the network differs from the plain version's")
+    g = torch.stack(got[2:], dim=-1)
+    w = torch.stack(want[2:], dim=-1)
+    if want[0] is not None:
+        g, w = torch.cat((got[0], g), dim=-1), torch.cat((want[0], w), dim=-1)
+    nan = torch.isnan(w)
+    if not torch.equal(torch.isnan(g), nan):
+        raise AssertionError(f"{what}: NaN sums in other places than the plain version's")
+    err = (g.double() - w.double()).abs()[~nan]
+    scale = scales[~nan]
+    if not bool((err <= DENSE_TOL * scale).all()):
+        raise AssertionError(f"{what}: a sum off by more than {DENSE_TOL} of its scale")
+    return float((err / scale.clamp_min(1e-300)).max()) if err.numel() else 0.0
+
+
+def phase_dense_pass(device: str, shapes) -> dict:
+    """Phase 37: K6 against its plain version at each ``(B, N)`` of
+    ``shapes`` (reset draws), centralized and not, without and with an
+    obstacle mask, into a trajectory's slots and as sums alone; timed in
+    the rollout's mode beside its bound and the plain version."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import dense_flocking as k6
+
+    cr, cr2 = 0.9, 0.9 * 0.9
+    out = {"worst": 0.0, "timings": []}
+
+    def queued_ms(fn, reps=DENSE_QUEUED):
+        # launches queued back to back, so that the wrapper's host time (tens
+        # of microseconds) hides behind the card's work where that is longer
+        return time_ms(lambda: [fn() for _ in range(reps)]) / reps
+
+    for b, n in shapes:
+        x = draw_swarms(b, n, device, SEED + b)
+        values = torch.empty(b, 2, n, 6, device=device)
+        network = torch.empty(b, 2, n, n, device=device)
+        slots = (values[:, 1], network[:, 1])
+        obstacles = torch.arange(n, device=device) < 4
+        for centralized, mask in itertools.product((True, False), (None, obstacles)):
+            before = k6.launches
+            got = k6.dense_pass(x, cr, cr2, centralized, True, mask, out=slots)
+            sums = k6.dense_pass(x, cr, cr2, centralized, True, mask, out=(None, None))
+            _sync()
+            if k6.launches != before + 2 or got[0] is not slots[0] or got[1] is not slots[1]:
+                raise AssertionError(f"K6 at B={b} N={n}: not two launches into the slots")
+            want = k6.dense_pass_reference(x, cr, cr2, centralized, True, mask)
+            scales = dense_pass_scales(x, cr, cr2, centralized, mask)
+            what = f"K6 B={b} N={n} centralized={centralized} obstacles={mask is not None}"
+            out["worst"] = max(out["worst"], hold_dense_pass(what, got, want, scales))
+            for g, w in zip(sums[2:], got[2:]):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{what}: the sums alone differ from the full pass's")
+            del want, scales
+        pairs, hits = k1_pair_counts(x, x, 0, 0, cr, cr2)
+        moved = b * n * (4 + 6 + n + 4) * 4  # x read; values, network, sums written
+        timing = {"B": b, "N": n, "launch_blocks": b,
+                  "ms": queued_ms(lambda: k6.dense_pass(x, cr, cr2, True, True, out=slots)),
+                  "sums_only_ms": queued_ms(
+                      lambda: k6.dense_pass(x, cr, cr2, True, True, out=(None, None))),
+                  "call_ms": time_ms(lambda: k6.dense_pass(x, cr, cr2, True, True, out=slots)),
+                  "plain_ms": time_ms(
+                      lambda: k6.dense_pass_reference(x, cr, cr2, True, True, out=slots)),
+                  **pair_bound(pairs, hits, moved)}
+        timing["share"] = timing["bound_ms"] / timing["ms"]
+        out["timings"].append(timing)
+        del values, network, slots
+    return out
 
 
 def bench_state(n_envs: int, n_agents: int, seed: int, device: str):
@@ -1101,11 +1235,12 @@ def reset_counts() -> None:
     """Every kernel's launch counter, and the sparse pipeline's branch
     counters, to 0."""
     from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import dense_flocking as k6
     from gym_flock_tpu_torch.ops import flocking_sums as k1
     from gym_flock_tpu_torch.ops import rowmin as k5
     from gym_flock_tpu_torch.ops import sparse_flocking as sf
 
-    k1.launches = k2.launches = k2.backward_launches = k5.launches = 0
+    k1.launches = k2.launches = k2.backward_launches = k5.launches = k6.launches = 0
     sf.launches = sf.adj_launches = sf.adj_backward_launches = 0
     sf.overflow_passes = sf.adj_overflow_passes = sf.verlet_rebuilds = 0
 
@@ -2055,9 +2190,12 @@ def phase_flocking_variants(device: str, variants, n_steps: int) -> dict:
     import torch
 
     import gym_flock_tpu_torch as gft
+    from gym_flock_tpu_torch.envs.flocking import FlockingRelativeEnv
+    from gym_flock_tpu_torch.ops import dense_flocking as k6
     from gym_flock_tpu_torch.ops import flocking_sums as k1
 
-    out = {"k1_launches": 0, "k1_vs_plain": {"rel": 0.0, "ulp9": 0, "abs": 0.0}}
+    out = {"k1_launches": 0, "k6_launches": 0,
+           "k1_vs_plain": {"rel": 0.0, "ulp9": 0, "abs": 0.0}}
     for env_id, n_envs in variants:
         env, params = gft.make(env_id)
         gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2076,6 +2214,12 @@ def phase_flocking_variants(device: str, variants, n_steps: int) -> dict:
         if launches != tries or launch_total() != launches:
             raise AssertionError(f"{env_id}: K1 {launches} launches ({launch_total()} in all) "
                                  f"for {tries} reset draws")
+        # the dense-network variants' pass is K6, once a pass
+        dense = type(env)._fused_pass is FlockingRelativeEnv._fused_pass
+        k6_launches = k6.launches
+        if k6_launches != (n_steps + 1 if dense else 0):
+            raise AssertionError(f"{env_id}: K6 {k6_launches} launches in {n_steps} steps")
+        out["k6_launches"] += k6_launches
         check_all_finite(env_id, final.x, *obs0, *traj.values())
         first = flocking_first_step_on_host(env, params, state0, traj, gen_state, device)
         if launches:
@@ -2083,7 +2227,7 @@ def phase_flocking_variants(device: str, variants, n_steps: int) -> dict:
             out["k1_vs_plain"] = {k: max(v, err[k]) for k, v in out["k1_vs_plain"].items()}
         out["k1_launches"] += launches
         out[env_id] = {"B": n_envs, "N": params.n_agents, "k1_launches": launches,
-                       "reset_tries": tries, "reset_ms": reset_s * 1e3,
+                       "k6_launches": k6_launches, "reset_tries": tries, "reset_ms": reset_s * 1e3,
                        "ms_a_step": roll_s * 1e3 / n_steps,
                        "env_steps_per_s": n_envs * n_steps / roll_s,
                        "mean_reward": float(traj["reward"].mean()), "first_step": first}
@@ -4099,6 +4243,11 @@ def main() -> int:
           f"flocking DAgger 2, bc_vrp {QUALITY_VRP[0]} x {QUALITY_VRP[1]} states) in "
           f"{t36['phase_seconds']:.2f} s: " + json.dumps(t36))
 
+    # 37. K6 against its plain version
+    t37 = phase_dense_pass(device, [(8192, 100), (8, 100)])
+    _sync()
+    print("phase 37 K6 vs plain B=8192 and B=8, N=100: " + json.dumps(t37))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
@@ -4188,6 +4337,19 @@ def main() -> int:
         "bound_by": k4_big["bound_by"],
         "library_ms": None,
         "timings": a4["timings"],
+    }, {
+        "name": "dense_pass",
+        "route": "cuda",
+        "source": "gym_flock_tpu_torch/csrc/dense_pass.cu",
+        "replaces": None,
+        "launches": rel["k6_launches"] + t21["k6_launches"],
+        "max_rel_err": t37["worst"],
+        "ms": t37["timings"][0]["ms"],
+        "plain_ms": t37["timings"][0]["plain_ms"],
+        "bound_ms": t37["timings"][0]["bound_ms"],
+        "bound_by": t37["timings"][0]["bound_by"],
+        "library_ms": None,
+        "timings": t37["timings"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -8,9 +8,11 @@
 ``SparseFlockingEnv`` (``FlockingSparse-v0``).  Every tensor leads with the
 batch of swarms: ``x`` is ``[B, N, 4]`` rows of (px, py, vx, vy).
 
-At small N the fused observation/expert pass is dense PyTorch over
-``[B, N, N]`` pair tensors, as the JAX package computes it with dense XLA
-ops.  ``LargeFlockingEnv`` computes every pairwise reduction through K1
+At small N the fused observation/expert pass of the rollout is K6
+(``ops.dense_flocking``), one kernel launch a step on the card, where the
+JAX package runs dense XLA ops; its plain version (dense PyTorch over
+``[B, N, N]`` pair tensors) runs on the host, in float64 and under an
+obstacle mask.  ``LargeFlockingEnv`` computes every pairwise reduction through K1
 (``ops.flocking_sums``), and the rejection reset's acceptance test runs on
 K1's "full" channels (min r^2 and degree) for every env that draws its
 reset.  ``SparseFlockingEnv`` runs them on the cell-list pipeline and K3
@@ -28,6 +30,13 @@ import torch
 from gym_flock_tpu_torch.core.env import Env, EnvState
 from gym_flock_tpu_torch.core.spaces import Box
 from gym_flock_tpu_torch.ops import sparse_flocking as sf
+from gym_flock_tpu_torch.ops.dense_flocking import (
+    dense_pass,
+    expert_sums,
+    feature_sums,
+    pairwise_channels,
+    turner_potential_grad,
+)
 from gym_flock_tpu_torch.ops.flocking_sums import (
     flocking_features_large,
     flocking_sums,
@@ -141,71 +150,17 @@ def _state_from_x(x: torch.Tensor) -> FlockingState:
 # =============================================================================
 
 
-def _pairwise_channels(x: torch.Tensor, obstacle_mask: torch.Tensor | None = None):
-    """Channel-separated pairwise diffs ``(dx, dy, dvx, dvy, r2)``, each
-    ``[B, N, N]``, row minus column; r2 is +inf on the diagonal.
-
-    ``obstacle_mask`` (bool ``[N]``, shared by the batch; True = obstacle)
-    zeroes the velocity differences of obstacle rows AND columns (reference
-    flocking_obstacle.py:80-81)."""
-    px, py, vx, vy = x.unbind(dim=-1)
-    dx = px[..., :, None] - px[..., None, :]
-    dy = py[..., :, None] - py[..., None, :]
-    dvx = vx[..., :, None] - vx[..., None, :]
-    dvy = vy[..., :, None] - vy[..., None, :]
-    if obstacle_mask is not None:
-        keep = ~obstacle_mask
-        vel_keep = keep[:, None] & keep[None, :]
-        dvx = torch.where(vel_keep, dvx, 0.0)
-        dvy = torch.where(vel_keep, dvy, 0.0)
-    r2 = dx * dx + dy * dy
-    n = x.shape[-2]
-    eye = torch.eye(n, dtype=torch.bool, device=x.device)
-    r2 = torch.where(eye, torch.inf, r2)
-    return dx, dy, dvx, dvy, r2
-
-
-def _feature_sums(dx, dy, dvx, dvy, r2, adj):
-    """The six observation sums (reference flocking_relative.py:124-128):
-    0 dvx, 1 dx/r^4, 2 dx/r^2, 3 dvy, 4 dy/r^4, 5 dy/r^2, over neighbors."""
-    inv = 1.0 / r2
-    inv2 = inv * inv
-    return torch.stack(
-        (
-            (dvx * adj).sum(dim=-1),
-            (dx * inv2 * adj).sum(dim=-1),
-            (dx * inv * adj).sum(dim=-1),
-            (dvy * adj).sum(dim=-1),
-            (dy * inv2 * adj).sum(dim=-1),
-            (dy * inv * adj).sum(dim=-1),
-        ),
-        dim=-1,
-    )
-
-
 def flocking_features(x: torch.Tensor, comm_radius2,
                       obstacle_mask: torch.Tensor | None = None):
     """The ``compute_helpers`` pass (reference flocking_relative.py:111-134).
 
     Returns ``(state_values [B,N,6], adj [B,N,N], adj_mean [B,N,N],
-    r2 [B,N,N])``; ``obstacle_mask`` as in :func:`_pairwise_channels`.
+    r2 [B,N,N])``; ``obstacle_mask`` as in ``ops.dense_flocking.pairwise_channels``.
     """
-    dx, dy, dvx, dvy, r2 = _pairwise_channels(x, obstacle_mask)
+    dx, dy, dvx, dvy, r2 = pairwise_channels(x, obstacle_mask)
     adj = radius_adjacency(r2, comm_radius2)
     adj_mean = mean_pool_normalize(adj)
-    return _feature_sums(dx, dy, dvx, dvy, r2, adj), adj, adj_mean, r2
-
-
-def turner_potential_grad(pos_diff_c: torch.Tensor, r2: torch.Tensor, comm_radius):
-    """Gradient of the Turner-2003 flocking potential (reference :214-226).
-
-    The reference's quirk is kept: the cutoff compares ``r2`` (distance
-    SQUARED) with ``comm_radius`` (NOT squared), flocking_relative.py:225.
-    """
-    inv = 1.0 / r2
-    inv2 = inv * inv
-    grad = -2.0 * (pos_diff_c * inv2) + 2.0 * (pos_diff_c * inv)
-    return torch.where(r2 > comm_radius, 0.0, grad)
+    return feature_sums(dx, dy, dvx, dvy, r2, adj), adj, adj_mean, r2
 
 
 def turner_controller(
@@ -217,7 +172,7 @@ def turner_controller(
     Decentralized mode masks both terms by the adjacency."""
     if centralized is None:
         centralized = params.centralized
-    dx, dy, dvx, dvy, r2 = _pairwise_channels(x, obstacle_mask)
+    dx, dy, dvx, dvy, r2 = pairwise_channels(x, obstacle_mask)
     gx = turner_potential_grad(dx, r2, params.comm_radius)
     gy = turner_potential_grad(dy, r2, params.comm_radius)
     if not centralized:
@@ -232,52 +187,20 @@ def turner_controller(
 
 def flocking_obs_expert_pass(
     x: torch.Tensor, params: FlockingParams, centralized: bool = True,
-    obstacle_mask: torch.Tensor | None = None,
+    obstacle_mask: torch.Tensor | None = None, out=None,
 ):
     """One pairwise pass giving everything the observation AND the Turner
-    expert need at state ``x``.
+    expert need at state ``x``: ``ops.dense_flocking.dense_pass`` with the
+    params' radii and pooling (K6 on the card, where the input allows).
 
     Returns ``(values [B,N,6], network [B,N,N], s_gx, s_gy, s_dvx, s_dvy)``,
     the last four ``[B,N]``: the expert's summed potential gradients and
     velocity differences (adjacency-masked when ``centralized=False``).
-    Centralized velocity sums use the closed form
-    ``sum_j (v_i - v_j) = N v_i - sum_j v_j``, except under an
-    ``obstacle_mask``, whose zeroed rows and columns the closed form would
-    not see: there they are the masked row sums.
+    ``out`` as in ``dense_pass``: views to write ``values`` and ``network``
+    into, an entry ``None`` leaving that output out.
     """
-    channels = _pairwise_channels(x, obstacle_mask)
-    adj = radius_adjacency(channels[4], params.comm_radius2)
-    values = _feature_sums(*channels, adj)
-    network = mean_pool_normalize(adj) if params.mean_pooling else adj
-    # decentralized velocity-consensus sums ARE feature channels 0/3
-    return (values, network,
-            *_expert_sums(x, channels, adj, params, centralized, obstacle_mask is not None,
-                          values[..., 0], values[..., 3]))
-
-
-def _expert_sums(x, channels, adj, params: FlockingParams, centralized: bool,
-                 masked: bool, s_dvx=None, s_dvy=None):
-    """``(s_gx, s_gy, s_dvx, s_dvy)`` of the Turner expert from one pass's
-    pairwise ``channels`` and adjacency: the potential gradients summed
-    (adjacency-masked when not ``centralized``) and the velocity-difference
-    sums, by the closed form ``N v_i - sum_j v_j`` when centralized and not
-    ``masked`` by an obstacle mask (whose zeroed rows and columns it would
-    not see).  A caller that already has the decentralized velocity sums
-    passes them as ``s_dvx``/``s_dvy``."""
-    dx, dy, dvx, dvy, r2 = channels
-    gx = turner_potential_grad(dx, r2, params.comm_radius)
-    gy = turner_potential_grad(dy, r2, params.comm_radius)
-    if not centralized:
-        gx, gy = gx * adj, gy * adj
-        if s_dvx is None:
-            s_dvx, s_dvy = (dvx * adj).sum(dim=-1), (dvy * adj).sum(dim=-1)
-    elif not masked:
-        n = x.shape[-2]
-        s_dvx = n * x[..., 2] - x[..., 2].sum(dim=-1, keepdim=True)
-        s_dvy = n * x[..., 3] - x[..., 3].sum(dim=-1, keepdim=True)
-    else:
-        s_dvx, s_dvy = dvx.sum(dim=-1), dvy.sum(dim=-1)
-    return gx.sum(dim=-1), gy.sum(dim=-1), s_dvx, s_dvy
+    return dense_pass(x, params.comm_radius, params.comm_radius2, centralized,
+                      params.mean_pooling, obstacle_mask, out)
 
 
 def _instant_cost(x: torch.Tensor) -> torch.Tensor:
@@ -401,7 +324,7 @@ def flocking_features_exact(x: torch.Tensor, comm_radius2,
     (flocking_relative.py:111-134): direct divisions (``dx / (r2*r2)``), the
     mean-pooled adjacency by element-wise division, sequential neighbour
     sums."""
-    dx, dy, dvx, dvy, r2 = _pairwise_channels(x, obstacle_mask)
+    dx, dy, dvx, dvy, r2 = pairwise_channels(x, obstacle_mask)
     adj = (r2 < comm_radius2).to(x.dtype)
     deg = adj.sum(dim=-1)  # sums of 0/1: exact in any order
     deg = torch.where(deg == 0.0, 1.0, deg)
@@ -420,7 +343,7 @@ def turner_controller_exact(x: torch.Tensor, params: FlockingParams,
     sequential sums of the stacked terms."""
     if centralized is None:
         centralized = params.centralized
-    dx, dy, dvx, dvy, r2 = _pairwise_channels(x, obstacle_mask)
+    dx, dy, dvx, dvy, r2 = pairwise_channels(x, obstacle_mask)
     r4 = r2 * r2
     gx = torch.where(r2 > params.comm_radius, 0.0, -2.0 * (dx / r4) + 2.0 * (dx / r2))
     gy = torch.where(r2 > params.comm_radius, 0.0, -2.0 * (dy / r4) + 2.0 * (dy / r2))
@@ -570,20 +493,24 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
 
     # ---------------------------------------------------- fused expert rollout
 
-    def _fused_pass(self, x: torch.Tensor, params: FlockingParams, centralized: bool):
-        """``(values, network, s_gx, s_gy, s_dvx, s_dvy)`` at ``x``."""
+    def _fused_pass(self, x: torch.Tensor, params: FlockingParams, centralized: bool,
+                    out=None):
+        """``(values, network, s_gx, s_gy, s_dvx, s_dvy)`` at ``x``; ``out``
+        as in :func:`flocking_obs_expert_pass`.  Variants whose pass writes
+        into no view take ``out`` and return their own outputs."""
         return flocking_obs_expert_pass(x, params, centralized,
-                                        self._obstacle_mask(params, x))
+                                        self._obstacle_mask(params, x), out)
 
     def _fused_carry_init(self, x: torch.Tensor, params: FlockingParams):
         """State carried across the steps of the fused rollout: ``None`` for
         the dense envs; the sparse env's Verlet table."""
         return None
 
-    def _fused_pass_carry(self, x, params: FlockingParams, centralized: bool, carry):
+    def _fused_pass_carry(self, x, params: FlockingParams, centralized: bool, carry,
+                          out=None):
         """``(fused pass at x, carry')``; envs with cross-step kernel state
         override this pair of hooks, not the rollout loop."""
-        return self._fused_pass(x, params, centralized), carry
+        return self._fused_pass(x, params, centralized, out), carry
 
     def expert_rollout(
         self,
@@ -605,12 +532,24 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         if centralized is None:
             centralized = params.centralized
         x = state.x
+        b, n = x.shape[:2]
         carry = self._fused_carry_init(x, params)
         with span("gft.pair_pass"):
-            (_, _, s_gx, s_gy, s_dvx, s_dvy), carry = self._fused_pass_carry(
-                x, params, centralized, carry
+            (values, network, s_gx, s_gy, s_dvx, s_dvy), carry = self._fused_pass_carry(
+                x, params, centralized, carry, out=(None, None)
             )
-        traj: Dict[str, torch.Tensor] = {}
+        # the trajectory, allocated once: the dense pass writes each step's
+        # values and network straight into their slots; a pass that writes
+        # into no view returned its outputs, which give their shapes
+        shapes = {"u": (n, 2), "values": (n, 6), "network": (n, n), "reward": ()}
+        for k, v in (("values", values), ("network", network)):
+            if v is not None:
+                shapes[k] = tuple(v.shape[1:])
+        traj: Dict[str, torch.Tensor] = {
+            k: x.new_empty((b, n_steps) + shape) for k, shape in shapes.items()}
+        # each step's views of the trajectory, made once a call
+        slots = list(zip(traj["values"].unbind(1), traj["network"].unbind(1)))
+        u_slots, reward_slots = traj["u"].unbind(1), traj["reward"].unbind(1)
         for t in range(n_steps):
             with span("gft.step"):
                 controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
@@ -618,14 +557,12 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
                 x = self._rollout_integrate(x, u, params, generator)
                 with span("gft.pair_pass"):
                     (values, network, s_gx, s_gy, s_dvx, s_dvy), carry = (
-                        self._fused_pass_carry(x, params, centralized, carry))
-                step = {"u": u, "values": values, "network": network,
-                        "reward": _instant_cost(x)}
-                if not traj:  # preallocate: the stored network dominates memory
-                    traj = {k: v.new_empty((v.shape[0], n_steps) + v.shape[1:])
-                            for k, v in step.items()}
-                for k, v in step.items():
-                    traj[k][:, t] = v
+                        self._fused_pass_carry(x, params, centralized, carry, out=slots[t]))
+                u_slots[t].copy_(u)
+                reward_slots[t].copy_(_instant_cost(x))
+                for slot, v in zip(slots[t], (values, network)):
+                    if v is not slot:
+                        slot.copy_(v)
         final = dataclasses.replace(state, x=x, time=state.time + n_steps)
         return final, traj
 
@@ -643,7 +580,7 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         the sum of 1/r^2 + log(r^2) over ordered pairs, out-of-range pairs
         clamped to the value at the communication radius, the diagonal
         zeroed."""
-        r2 = _pairwise_channels(state.x)[4]
+        r2 = pairwise_channels(state.x)[4]
         cr2 = params.comm_radius2
         p = 1.0 / r2 + torch.log(r2)
         p = torch.where(r2 > cr2, 1.0 / cr2 + math.log(cr2), p)
@@ -656,7 +593,7 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         flocking_relative.py:136-143)."""
         v = state.x[..., 2:4]
         vel_diffs = torch.sqrt(((v - v.mean(dim=-2, keepdim=True)) ** 2).sum(dim=-1))
-        r2 = _pairwise_channels(state.x)[4]
+        r2 = pairwise_channels(state.x)[4]
         return {"vel_diffs": vel_diffs, "min_dists": torch.sqrt(r2).amin(dim=-2)}
 
     # ------------------------------------------------------------ spaces
@@ -697,16 +634,17 @@ class FlockingAbsoluteEnv(FlockingRelativeEnv):
     def observation_space(self, params: FlockingParams):
         return Box(-math.inf, math.inf, (params.n_agents, params.n_neighbors * 4))
 
-    def _fused_pass(self, x, params, centralized):
+    def _fused_pass(self, x, params, centralized, out=None):
         """The neighbour table shares the pass's r^2 with the expert sums, so
-        the fused rollout's ``values`` are this env's observation."""
-        channels = _pairwise_channels(x)
+        the fused rollout's ``values`` are this env's observation.  Writes
+        into no view: ``out`` is not read."""
+        channels = pairwise_channels(x)
         r2 = channels[4]
         adj = radius_adjacency(r2, params.comm_radius2)
         network = mean_pool_normalize(adj) if params.mean_pooling else adj
         obs = _neighbor_table(x, _nearest(r2, params.n_neighbors))
         return (obs, network,
-                *_expert_sums(x, channels, adj, params, centralized, masked=False))
+                *expert_sums(x, channels, adj, params.comm_radius, centralized, masked=False))
 
 
 class FlockingLeaderEnv(FlockingRelativeEnv):
@@ -912,7 +850,9 @@ class LargeFlockingEnv(FlockingRelativeEnv):
             dvx, dvy = s[..., 0], s[..., 3]
         return values, network, gx, gy, dvx, dvy
 
-    def _fused_pass(self, x, params, centralized):
+    def _fused_pass(self, x, params, centralized, out=None):
+        """K1's channel sums, unpacked; writes into no view: ``out`` is not
+        read."""
         s = self._sums(x, params, channels="core" if centralized else "expert")
         return self._unpack_sums(s, x, centralized)
 
@@ -970,7 +910,7 @@ class SparseFlockingEnv(LargeFlockingEnv):
             return None
         return sf.verlet_build(x, params.comm_radius, skin)
 
-    def _fused_pass_carry(self, x, params, centralized, carry):
+    def _fused_pass_carry(self, x, params, centralized, carry, out=None):
         if carry is None:  # reuse off: a fresh table every pass
             return super()._fused_pass_carry(x, params, centralized, carry)
         s, carry = sf.flocking_sums_sparse_verlet(

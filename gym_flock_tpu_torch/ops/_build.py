@@ -129,5 +129,10 @@ def load():
         lib.gft_sparse_adj.restype = ctypes.c_int
         lib.gft_sparse_adj_grid.argtypes = [i, i, i, p]
         lib.gft_sparse_adj_grid.restype = None
+        ll = ctypes.c_longlong
+        lib.gft_dense_pass.argtypes = [p, p, i, i, f, f, i, i, p, ll, p, ll, p, i, p]
+        lib.gft_dense_pass.restype = ctypes.c_int
+        lib.gft_dense_pass_max_agents.argtypes = []
+        lib.gft_dense_pass_max_agents.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -177,6 +177,57 @@ def test_stochastic_rollout_replays_the_step_loop():
     assert torch.equal(again.x, seeded.x)
 
 
+def _check_traj_step(traj, t, ju, jobs, jr, degree):
+    """Step ``t`` of the port's trajectory against JAX's action, observation
+    and reward of the same step."""
+    np.testing.assert_allclose(traj["u"][:, t].numpy(), np.asarray(ju), rtol=0, atol=U_ATOL)
+    assert _rel(traj["values"][:, t].numpy(), jobs[0]) < SUM_TOL
+    if degree:
+        np.testing.assert_array_equal(traj["network"][:, t].numpy(), np.asarray(jobs[1]))
+    else:
+        np.testing.assert_allclose(traj["network"][:, t].numpy(), np.asarray(jobs[1]), rtol=0,
+                                   atol=NETWORK_ATOL)
+    np.testing.assert_allclose(traj["reward"][:, t].numpy(), np.asarray(jr), rtol=0, atol=U_ATOL)
+
+
+@pytest.mark.parametrize("env_id", ["FlockingRelative-v0", "FlockingLeader-v0",
+                                    "FlockingLarge-v0"])
+def test_preallocated_trajectory_matches_jax_step_by_step(env_id):
+    """The rollout's trajectory, allocated before its first step and filled
+    slot by slot (the dense pass writes into its slots, the large env's
+    outputs are copied), slot for slot JAX's ``expert_rollout`` at B=2 over
+    3 steps."""
+    x = grid_swarms(2, N, seed=29)
+    jenv, jp, jstate, tenv, tp, tstate = _pair(env_id, x)
+    final, traj = tenv.expert_rollout(tstate, tp, 3)
+    jfinal, jtraj = jax.vmap(lambda s: jenv.expert_rollout(s, jp, 3))(jstate)
+    network = (2, 3, N) if env_id == "FlockingLarge-v0" else (2, 3, N, N)
+    assert [(k, tuple(v.shape)) for k, v in traj.items()] == [
+        ("u", (2, 3, N, 2)), ("values", (2, 3, N, 6)), ("network", network), ("reward", (2, 3))]
+    for t in range(3):
+        _check_traj_step(traj, t, jtraj["u"][:, t], (jtraj["values"][:, t],
+                         jtraj["network"][:, t]), jtraj["reward"][:, t],
+                         degree=env_id == "FlockingLarge-v0")
+    np.testing.assert_allclose(final.x.numpy(), np.asarray(jfinal.x), rtol=0, atol=STATE_ATOL)
+
+
+def test_stochastic_preallocated_trajectory_matches_jax_steps_at_its_dts():
+    """FlockingStochastic's rollout against JAX's controller and
+    ``step_with_dt`` driven by the dts that the rollout's generator drew,
+    slot by slot, at B=2 over 3 steps."""
+    x = grid_swarms(2, N, seed=30)
+    jenv, jp, jstate, tenv, tp, tstate = _pair("FlockingStochastic-v0", x)
+    final, traj = tenv.expert_rollout(tstate, tp, 3, generator=torch.Generator().manual_seed(9))
+    replay = torch.Generator().manual_seed(9)
+    for t in range(3):
+        dt = jnp.asarray(tenv._draw_dt(replay, tp, tstate.x).numpy())
+        ju = jax.vmap(lambda s: jenv.controller(s, jp))(jstate)
+        jstate, jobs, jr, _, _ = jax.vmap(lambda s, a, d: jenv.step_with_dt(s, a, d, jp))(
+            jstate, ju, dt)
+        _check_traj_step(traj, t, ju, jobs, jr, degree=False)
+    np.testing.assert_allclose(final.x.numpy(), np.asarray(jstate.x), rtol=0, atol=STATE_ATOL)
+
+
 @pytest.mark.parametrize("env_id", ["FlockingRelative-v0", "FlockingObstacle-v0"])
 def test_potential_matches_jax(env_id):
     x = grid_swarms(B, N, seed=27)
