@@ -57,6 +57,15 @@ def pair_sums_work(b: int, n: int, pairs: int, hits: int, n_out: int = 16):
             b * n * 4 * F32 + b * n * n_out * F32)
 
 
+def dense_pass_work(b: int, n: int, pairs: int, hits: int, observation: bool = True):
+    """``(flops, bytes)`` of one dense pass (K6) over ``b`` swarms of ``n``:
+    the test on every pair, the body on those within reach; the state read
+    once, the expert's four sums a row written once and, with
+    ``observation``, the six features and the ``n`` network entries of a
+    row written once too."""
+    return pair_sums_work(b, n, pairs, hits, n_out=4 + (6 + n if observation else 0))
+
+
 def env_step_work(b: int, n: int, pairs: int, hits: int, dense_network: bool):
     """``(flops, bytes)`` of one expert env-step of ``b`` swarms: one pass of
     the pair sums, the state read and written, and the step's trajectory
