@@ -29,6 +29,12 @@ robot from its pre-move node) and ``pos_delta`` (the JAX package's repaired
 
 Banks are memoized in the process and cached on disk, keyed on their
 configuration (``default_coverage_bank``).
+
+Spans (``utils.profiling.span``, recorded only while a profiler runs):
+``gft.cov.reset`` (``reset_env``), ``gft.cov.step`` (``step_env``),
+``gft.cov.conflict`` (the conflict fixed point and its host reads, inside a
+step), ``gft.cov.obs`` (the observation and reward, inside a reset or a
+step) and ``gft.cov.expert`` (the greedy expert, K5 included).
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ from gym_flock_tpu_torch.core.spaces import Box, DictSpace, MultiDiscrete
 from gym_flock_tpu_torch.envs import coverage_graph as cg
 from gym_flock_tpu_torch.ops.pairwise import nodes_within_radius
 from gym_flock_tpu_torch.ops.rowmin import MULT, pad_cost_rows, packed_greedy_min
-from gym_flock_tpu_torch.utils.profiling import host_bool
+from gym_flock_tpu_torch.utils.profiling import host_bool, span
 
 __all__ = [
     "CoverageParams",
@@ -143,12 +149,28 @@ class CoverageState(EnvState):
     last_loc: torch.Tensor  # [B, R] int32 pre-move location; -1 after reset
 
 
+def _spanned(name: str):
+    """Run the decorated function inside the span ``name`` (a no-op without
+    a profiler, ``utils.profiling.span``)."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
 def _safe_gather(vec: torch.Tensor, idx: torch.Tensor, fill=0.0) -> torch.Tensor:
     """``vec[b, idx[b, j]]`` with idx == -1 mapping to ``fill``."""
     safe = idx.long().clamp(0, vec.shape[1] - 1)
     return torch.where(idx >= 0, vec.gather(1, safe), fill)
 
 
+@_spanned("gft.cov.conflict")
 def _resolve_conflicts(cur: torch.Tensor, chosen: torch.Tensor, collision_checks: bool):
     """Movement conflict resolution over ``[B, R]``: the reference's
     two-pass sequential procedure (coverage.py:186-201) as the JAX package's
@@ -241,6 +263,7 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
 
     # ------------------------------------------------------------------ reset
 
+    @_spanned("gft.cov.reset")
     def reset_env(self, generator: torch.Generator, params: CoverageParams, n_envs: int):
         """Fresh envs (coverage.py:364-419): a random bank graph, robots
         drawn without replacement from a start region of full BFS levels
@@ -296,6 +319,7 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
 
     # ------------------------------------------------------------------- step
 
+    @_spanned("gft.cov.step")
     def step_env(self, generator, state: CoverageState, action, params: CoverageParams,
                  flip: Optional[torch.Tensor] = None):
         """Apply ``action [B, R]`` (or ``[B, R, 1]``; out-of-range entries
@@ -337,6 +361,7 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
             seen = nodes_within_radius(params.discover_radius, robot_pos, all_pos)[:, r:]
         return seen & mask
 
+    @_spanned("gft.cov.obs")
     def _obs_reward(self, state: CoverageState, params: CoverageParams,
                     generator: Optional[torch.Generator] = None,
                     flip: Optional[torch.Tensor] = None):
@@ -542,6 +567,7 @@ class CoverageEnv(Env[CoverageParams, CoverageState]):
 
     # ------------------------------------------------------------- controller
 
+    @_spanned("gft.cov.expert")
     def controller(
         self,
         state: CoverageState,
