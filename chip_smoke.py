@@ -42,10 +42,15 @@ Phases, each printing one line:
    B=3, R=33, T=300, G=2 case with one fully blocked env.  Equal bit for bit
    (``torch.equal``).  Kernel and plain times at the first two shapes.
 7. main path, ``ExploreFullEnv-v0`` (R=100, real map): ``batch_rollout``
-   with B=512, 8 steps and the greedy expert.  K5 must have launched exactly
-   once per step; the first step's actions must equal those of the plain
-   argmin controller on the same state with the same random draws; the
-   rewards must be finite with a positive total.
+   with B=512, 8 steps and the greedy expert.  K5 and K7 (the conflict
+   resolution, ``ops.conflicts``) must each have launched exactly once per
+   step, with no host-read conflict round; the first step's actions must
+   equal those of the plain argmin controller on the same state with the
+   same random draws, and K7's result on that step the plain fixed
+   point's; the rewards must be finite with a positive total.  K7 (10
+   launches queued, over 10; one call alone as ``call_ms``) and the fixed
+   point timed at the phase's shape (median of 7), with K7's byte bound
+   (12 B R).
 8. main path, ``Coverage-v0`` (R=6, G=8): the same with B=8192, 16 steps.
 9. K3 (``sparse_sums``) against its plain PyTorch version on the card, in
    the "core", "expert" and "full" channel sets, on sorted operands at
@@ -311,7 +316,7 @@ EDGE_CASES = ("band", "all in reach", "none in reach", "coincident pair")
 # of their terms: the same f32 terms, summed in f32 by the plain version,
 # in f32 chunks of at most 32 columns added in f64 by K6
 DENSE_TOL = 1e-5
-DENSE_QUEUED = 10  # K6 launches a timing queues back to back
+DENSE_QUEUED = 10  # K6 and K7 launches a queued timing queues back to back
 
 
 def _sync():
@@ -336,6 +341,13 @@ def time_ms(fn) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def queued_ms(fn, reps=DENSE_QUEUED) -> float:
+    """``time_ms`` of ``reps`` calls queued back to back, over ``reps``: the
+    wrapper's host time (tens of microseconds) hides behind the card's work
+    where that is longer."""
+    return time_ms(lambda: [fn() for _ in range(reps)]) / reps
 
 
 def sum_channels(channels: str):
@@ -812,11 +824,6 @@ def phase_dense_pass(device: str, shapes) -> dict:
     cr, cr2 = 0.9, 0.9 * 0.9
     out = {"worst": 0.0, "timings": []}
 
-    def queued_ms(fn, reps=DENSE_QUEUED):
-        # launches queued back to back, so that the wrapper's host time (tens
-        # of microseconds) hides behind the card's work where that is longer
-        return time_ms(lambda: [fn() for _ in range(reps)]) / reps
-
     for b, n in shapes:
         x = draw_swarms(b, n, device, SEED + b)
         values = torch.empty(b, 2, n, 6, device=device)
@@ -1174,27 +1181,33 @@ def phase_rowmin_check(device: str, banks) -> dict:
 
 
 def phase_coverage(device: str, env, params, n_envs: int, n_steps: int) -> dict:
-    """Phases 7-8: a coverage env's greedy-expert rollout through K5."""
+    """Phases 7-8: a coverage env's greedy-expert rollout through K5 and K7;
+    then K7 against the plain fixed point on the first step, and both
+    timed."""
     import dataclasses
 
     import torch
 
+    from gym_flock_tpu_torch.ops import conflicts as k7
     from gym_flock_tpu_torch.ops import rowmin as k5
     from gym_flock_tpu_torch.parallel.rollout import batch_rollout, rollout
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     gen_state = gen.get_state()
     _sync()
-    k5.launches = 0
+    k5.launches = k7.launches = 0
     env.conflict_rounds = 0
     t0 = time.perf_counter()
     final, traj = batch_rollout(env, params, gen, n_envs, n_steps, policy="expert",
                                 keep_obs=False)
     _sync()
     seconds = time.perf_counter() - t0
-    launches, rounds = k5.launches, env.conflict_rounds
+    launches, k7_launches, rounds = k5.launches, k7.launches, env.conflict_rounds
     if launches != n_steps:
         raise AssertionError(f"K5 launches {launches} != {n_steps} steps")
+    if k7_launches != (n_steps if params.collision_checks else 0) or rounds != 0:
+        raise AssertionError(f"K7 launches {k7_launches} and {rounds} host-read conflict "
+                             f"rounds in {n_steps} steps")
     reward = traj["reward"]
     if tuple(reward.shape) != (n_envs, n_steps) or not torch.isfinite(reward).all():
         raise AssertionError(f"rewards of shape {tuple(reward.shape)} or not finite")
@@ -1216,6 +1229,25 @@ def phase_coverage(device: str, env, params, n_envs: int, n_steps: int) -> dict:
         bad = int((traj["action"][:, 0] != u_plain).sum())
         raise AssertionError(f"first-step actions differ from the plain controller in {bad}")
 
+    # the first step's conflicts: K7 against the plain fixed point
+    cur = state0.robot_loc
+    nbr = params.bank["neighbor_table"][state0.graph.long()[:, None], cur.long()]
+    a_sel = u_plain.long().reshape(cur.shape).clamp(0, params.n_actions - 1)
+    chosen = nbr.gather(2, a_sel[..., None]).squeeze(2).contiguous()
+    got = k7.resolve_conflicts(cur, chosen)
+    want, plain_rounds = k7.resolve_conflicts_reference(cur, chosen)
+    _sync()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"K7 differs from the plain fixed point in {bad} robots")
+    k7_timing = {"B": n_envs, "R": params.n_robots, "plain_rounds": plain_rounds,
+                 "moved": int((got != cur).sum()),
+                 "ms": queued_ms(lambda: k7.resolve_conflicts(cur, chosen)),
+                 "call_ms": time_ms(lambda: k7.resolve_conflicts(cur, chosen)),
+                 "plain_ms": time_ms(lambda: k7.resolve_conflicts_reference(cur, chosen)),
+                 # cur and chosen read, the result written; no arithmetic counted
+                 **bound(0, 12 * n_envs * params.n_robots), "library_ms": None}
+
     # the rollout alone, without the reset
     _sync()
     t1 = time.perf_counter()
@@ -1224,7 +1256,8 @@ def phase_coverage(device: str, env, params, n_envs: int, n_steps: int) -> dict:
     _sync()
     roll_s = time.perf_counter() - t1
     return {
-        "launches": launches, "conflict_rounds_per_step": rounds / n_steps,
+        "launches": launches, "k7_launches": k7_launches,
+        "conflict_rounds_per_step": rounds / n_steps, "k7_timing": k7_timing,
         "total_reward": total, "seconds": seconds, "rollout_seconds": roll_s,
         "env_steps_per_s": n_envs * n_steps / seconds,
         "rollout_env_steps_per_s": n_envs * n_steps / roll_s,
@@ -1235,12 +1268,14 @@ def reset_counts() -> None:
     """Every kernel's launch counter, and the sparse pipeline's branch
     counters, to 0."""
     from gym_flock_tpu_torch.ops import adjacency_matmul as k2
+    from gym_flock_tpu_torch.ops import conflicts as k7
     from gym_flock_tpu_torch.ops import dense_flocking as k6
     from gym_flock_tpu_torch.ops import flocking_sums as k1
     from gym_flock_tpu_torch.ops import rowmin as k5
     from gym_flock_tpu_torch.ops import sparse_flocking as sf
 
     k1.launches = k2.launches = k2.backward_launches = k5.launches = k6.launches = 0
+    k7.launches = 0
     sf.launches = sf.adj_launches = sf.adj_backward_launches = 0
     sf.overflow_passes = sf.adj_overflow_passes = sf.verlet_rebuilds = 0
 
@@ -4350,6 +4385,19 @@ def main() -> int:
         "bound_by": t37["timings"][0]["bound_by"],
         "library_ms": None,
         "timings": t37["timings"],
+    }, {
+        "name": "resolve_conflicts",
+        "route": "cuda",
+        "source": "gym_flock_tpu_torch/csrc/conflicts.cu",
+        "replaces": None,
+        "launches": xf["k7_launches"] + cv["k7_launches"],
+        "max_abs_err": 0,
+        "ms": xf["k7_timing"]["ms"],
+        "plain_ms": xf["k7_timing"]["plain_ms"],
+        "bound_ms": xf["k7_timing"]["bound_ms"],
+        "bound_by": xf["k7_timing"]["bound_by"],
+        "library_ms": None,
+        "timings": [xf["k7_timing"], cv["k7_timing"]],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -6,7 +6,7 @@ N robots walk on a road-lattice or occupancy-map graph, each choosing one of
 newly visited targets.  The graphs are preprocessed on the host into a bank
 (``envs.coverage_graph``): a dict of tensors with a leading graph axis, on
 one device.  Every state tensor leads with the batch of envs B; a step is
-gathers over the bank, the conflict fixed point and masked writes.
+gathers over the bank, the conflict resolution and masked writes.
 
 The observation is the reference's padded graph buffer (coverage.py:353-354):
 ``nodes [B, max_nodes, n_node_feat]``, ``edges [B, max_edges, 1]``,
@@ -32,9 +32,10 @@ configuration (``default_coverage_bank``).
 
 Spans (``utils.profiling.span``, recorded only while a profiler runs):
 ``gft.cov.reset`` (``reset_env``), ``gft.cov.step`` (``step_env``),
-``gft.cov.conflict`` (the conflict fixed point and its host reads, inside a
-step), ``gft.cov.obs`` (the observation and reward, inside a reset or a
-step) and ``gft.cov.expert`` (the greedy expert, K5 included).
+``gft.cov.conflict`` (conflict resolution, inside a step: K7 on the card,
+the fixed point and its host reads on the CPU), ``gft.cov.obs`` (the
+observation and reward, inside a reset or a step) and ``gft.cov.expert``
+(the greedy expert, K5 included).
 """
 from __future__ import annotations
 
@@ -54,9 +55,10 @@ import torch
 from gym_flock_tpu_torch.core.env import Env, EnvState
 from gym_flock_tpu_torch.core.spaces import Box, DictSpace, MultiDiscrete
 from gym_flock_tpu_torch.envs import coverage_graph as cg
+from gym_flock_tpu_torch.ops.conflicts import resolve_conflicts, resolve_conflicts_reference
 from gym_flock_tpu_torch.ops.pairwise import nodes_within_radius
 from gym_flock_tpu_torch.ops.rowmin import MULT, pad_cost_rows, packed_greedy_min
-from gym_flock_tpu_torch.utils.profiling import host_bool, span
+from gym_flock_tpu_torch.utils.profiling import span
 
 __all__ = [
     "CoverageParams",
@@ -173,39 +175,22 @@ def _safe_gather(vec: torch.Tensor, idx: torch.Tensor, fill=0.0) -> torch.Tensor
 @_spanned("gft.cov.conflict")
 def _resolve_conflicts(cur: torch.Tensor, chosen: torch.Tensor, collision_checks: bool):
     """Movement conflict resolution over ``[B, R]``: the reference's
-    two-pass sequential procedure (coverage.py:186-201) as the JAX package's
-    vectorized fixed point.  Returns ``(next_locs, rounds)``.
+    two-pass sequential procedure (coverage.py:186-201).  Returns
+    ``(next_locs, rounds)``, ``rounds`` the host-read rounds taken.
 
     Pass 1 lets every robot whose choice is its current node claim it; pass
     2 walks robots in index order: robot i moves to ``chosen[i]`` unless
     that value already appears in the partially filled result, else it
-    stays at ``cur[i]``.  A robot resolves in a round when no
-    smaller-indexed robot is still pending a claim that could affect
-    ``chosen[i]``; each round resolves at least the lowest pending index.
-    Each round costs one host sync (the "any env still pending" test).
+    stays at ``cur[i]``.  On the card K7 (``ops.conflicts``) runs the two
+    passes in one launch with no host read (``rounds`` 0); on the CPU the
+    JAX package's vectorized fixed point, one host read a round.
     """
     if not collision_checks:
         return chosen, 0
-    r = cur.shape[1]
-    idx = torch.arange(r, device=cur.device)
-    j_lt_i = idx[None, :] < idx[:, None]  # [i, j]
-    nl = torch.where(chosen == cur, chosen, -1)
-    is_stay = nl >= 0  # pass-1 claims, visible to every robot
-    # claims of still-pending smaller-indexed robots that could take chosen[i]
-    conflict = j_lt_i & (
-        (chosen[:, None, :] == chosen[:, :, None]) | (cur[:, None, :] == chosen[:, :, None])
-    )
-    rounds = 0
-    while True:
-        pending = nl == -1
-        if not host_bool(pending.any()):
-            return nl, rounds
-        rounds += 1
-        visible = is_stay[:, None, :] | (j_lt_i & ~pending[:, None, :])
-        definitely_taken = (visible & (nl[:, None, :] == chosen[:, :, None])).any(dim=2)
-        maybe_taken = (conflict & pending[:, None, :]).any(dim=2)
-        resolve_now = pending & ~maybe_taken
-        nl = torch.where(resolve_now, torch.where(definitely_taken, cur, chosen), nl)
+    if cur.device.type == "cpu":
+        return resolve_conflicts_reference(cur, chosen)
+    ids = (t.to(torch.int32).contiguous() for t in (cur, chosen))
+    return resolve_conflicts(*ids), 0
 
 
 def revisit_flips(generator: torch.Generator, n_envs: int, n_targets: int) -> torch.Tensor:
@@ -249,8 +234,9 @@ def _check_generator(generator: torch.Generator, params: CoverageParams) -> None
 class CoverageEnv(Env[CoverageParams, CoverageState]):
     """Graph-coverage MDP over a pre-built graph bank.
 
-    ``conflict_rounds`` counts the rounds of the conflict fixed point taken
-    by every ``step_env`` of this instance (one host sync each).
+    ``conflict_rounds`` counts the host-read rounds of the conflict fixed
+    point taken by every ``step_env`` of this instance (one host sync each):
+    on the CPU only, since the card resolves a step in one K7 launch.
     """
 
     conflict_rounds: int = 0

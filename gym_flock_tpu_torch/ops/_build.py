@@ -134,5 +134,7 @@ def load():
         lib.gft_dense_pass.restype = ctypes.c_int
         lib.gft_dense_pass_max_agents.argtypes = []
         lib.gft_dense_pass_max_agents.restype = ctypes.c_int
+        lib.gft_resolve_conflicts.argtypes = [p, p, p, i, i, p]
+        lib.gft_resolve_conflicts.restype = ctypes.c_int
         _lib = lib
     return _lib
