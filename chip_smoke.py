@@ -648,8 +648,7 @@ def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     x0 = state0.x
     s0 = k1.flocking_sums_block_reference(x0, x0, 0, 0, params.comm_radius,
                                           params.comm_radius2, "core")
-    _, _, gx, gy, dvx, dvy = env._unpack_sums(s0, x0, params.centralized)
-    u_plain = env._rollout_action(torch.stack((-gx - dvx, -dvy - gy), dim=-1), params)
+    u_plain = env._expert_action(*k1.expert_channels(s0, x0, params.centralized), params)
     u_err = float((traj["u"][:, 0] - u_plain).abs().max())
     if not u_err <= U_ATOL:
         raise AssertionError(f"first-step u differs from plain by {u_err:.3e}")
@@ -979,11 +978,11 @@ def check_sparse_first_step(env, params, x0, traj) -> dict:
     import torch
 
     from gym_flock_tpu_torch.envs.flocking import _integrate
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
 
     cr, cr2, skin = params.comm_radius, params.comm_radius2, env._verlet_skin(params)
     s0, dense0 = plain_pass_sums(x0, cr, cr2, skin)
-    _, _, gx, gy, dvx, dvy = env._unpack_sums(s0, x0, params.centralized)
-    u_plain = env._rollout_action(torch.stack((-gx - dvx, -dvy - gy), dim=-1), params)
+    u_plain = env._expert_action(*k1.expert_channels(s0, x0, params.centralized), params)
     u_err = float((traj["u"][:, 0] - u_plain).abs().max())
     if not u_err <= U_ATOL:
         raise AssertionError(f"first-step u differs from plain by {u_err:.3e}")
@@ -2193,8 +2192,8 @@ def flocking_first_step_on_host(env, params, state0, traj, gen_state, device: st
     x0 = host_head(state0.x)
     k = x0.shape[0]
     centralized = params.centralized
-    _, _, gx, gy, dvx, dvy = env._fused_pass(x0, params, centralized)
-    u = env._rollout_action(torch.stack((-gx - dvx, -dvy - gy), dim=-1), params)
+    _, _, *sums = env._fused_pass(x0, params, centralized)
+    u = env._expert_action(*sums, params)
     replay = torch.Generator(device=device)
     replay.set_state(gen_state)
     if isinstance(env, FlockingStochasticEnv):

@@ -22,7 +22,7 @@ from typing import Any, Dict, Generic, Tuple, TypeVar
 import torch
 
 from gym_flock_tpu_torch.core.spaces import Space
-from gym_flock_tpu_torch.utils.profiling import host_bool
+from gym_flock_tpu_torch.utils.profiling import host_bool, span
 
 TParams = TypeVar("TParams")
 TState = TypeVar("TState")
@@ -103,6 +103,27 @@ class Env(Generic[TParams, TState]):
                generator: torch.Generator | None = None) -> Action:
         """The expert action with the controller's default options."""
         return self.controller(state, params, generator)
+
+
+def _rejection_reset(draw, accept, max_tries: int,
+                     all_accepted=lambda ok: host_bool(ok.all())):
+    """``(x, tries)``: ``draw()`` proposes a batch ``[B, N, 4]`` and
+    ``accept(x)`` its ``[B]`` acceptance, together in one span
+    ``gft.reset.draw``.  An env keeps its first accepted draw; the loop ends
+    when ``all_accepted(ok)`` (a host read) or after ``max_tries`` draws, an
+    env never accepted keeping its LAST draw, as the JAX ``while_loop``."""
+    with span("gft.reset.draw"):
+        x = draw()
+        ok = accept(x)
+    tries = 1
+    while tries < max_tries and not all_accepted(ok):
+        with span("gft.reset.draw"):
+            x_new = draw()
+            ok_new = accept(x_new)
+        x = torch.where(ok[:, None, None], x, x_new)
+        ok = ok | ok_new
+        tries += 1
+    return x, tries
 
 
 def _select(done: torch.Tensor, a, b):

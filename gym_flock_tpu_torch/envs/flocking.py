@@ -27,7 +27,7 @@ from typing import Dict
 
 import torch
 
-from gym_flock_tpu_torch.core.env import Env, EnvState
+from gym_flock_tpu_torch.core.env import Env, EnvState, _rejection_reset
 from gym_flock_tpu_torch.core.spaces import Box
 from gym_flock_tpu_torch.ops import sparse_flocking as sf
 from gym_flock_tpu_torch.ops.dense_flocking import (
@@ -37,15 +37,15 @@ from gym_flock_tpu_torch.ops.dense_flocking import (
     pairwise_channels,
     turner_potential_grad,
 )
+from gym_flock_tpu_torch.ops import flocking_sums as k1
 from gym_flock_tpu_torch.ops.flocking_sums import (
     flocking_features_large,
     flocking_sums,
     flocking_sums_block,
-    turner_controller_large,
 )
 from gym_flock_tpu_torch.ops.pairwise import mean_pool_normalize, radius_adjacency
 from gym_flock_tpu_torch.utils import formations
-from gym_flock_tpu_torch.utils.profiling import host_bool, span
+from gym_flock_tpu_torch.utils.profiling import span
 
 __all__ = [
     "FlockingParams",
@@ -178,11 +178,8 @@ def turner_controller(
     if not centralized:
         adj = radius_adjacency(r2, params.comm_radius2)
         dvx, dvy, gx, gy = dvx * adj, dvy * adj, gx * adj, gy * adj
-    controls = torch.stack(
-        (-gx.sum(dim=-1) - dvx.sum(dim=-1), -dvy.sum(dim=-1) - gy.sum(dim=-1)),
-        dim=-1,
-    )
-    return controls.clamp(-10.0, 10.0) / params.action_scalar
+    return k1.turner_action(gx.sum(dim=-1), gy.sum(dim=-1), dvx.sum(dim=-1), dvy.sum(dim=-1),
+                            params.action_scalar)
 
 
 def flocking_obs_expert_pass(
@@ -438,32 +435,21 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         s = flocking_sums_block(
             x, x, 0, 0, params.comm_radius, params.comm_radius2, channels="full"
         )
-        degree = s[..., 8].amin(dim=-1)
-        min_dist = torch.sqrt(s[..., 9].amin(dim=-1))
-        return (degree >= 2) & (min_dist > params.min_dist_thresh)
+        return k1.reset_accepts(*k1.reset_minima(s), params.min_dist_thresh)
 
     # ------------------------------------------------------------ protocol
 
     def reset_env(self, generator: torch.Generator, params: FlockingParams, n_envs: int):
         """Rejection-sampling reset (reference flocking_relative.py:156-192).
 
-        Each try redraws the whole batch; an env keeps its first accepted
-        draw.  After ``params.max_reset_tries`` draws an env that never
-        accepted keeps its LAST draw, as the JAX ``while_loop`` does.
+        Each try redraws the whole batch (``core.env._rejection_reset``):
+        an env keeps its first accepted draw, or its last after
+        ``params.max_reset_tries`` draws.
         """
         with span("gft.reset"):
-            with span("gft.reset.draw"):
-                x = self._draw(generator, params, n_envs)
-                ok = self._reset_accept(x, params)
-            tries = 1
-            while tries < params.max_reset_tries and not host_bool(ok.all()):
-                with span("gft.reset.draw"):
-                    x_new = self._draw(generator, params, n_envs)
-                    ok_new = self._reset_accept(x_new, params)
-                x = torch.where(ok[:, None, None], x, x_new)
-                ok = ok | ok_new
-                tries += 1
-            self.last_reset_tries = tries
+            x, self.last_reset_tries = _rejection_reset(
+                lambda: self._draw(generator, params, n_envs),
+                lambda x: self._reset_accept(x, params), params.max_reset_tries)
             state = _state_from_x(x)
             return state, self._obs(state, params)
 
@@ -535,7 +521,7 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         b, n = x.shape[:2]
         carry = self._fused_carry_init(x, params)
         with span("gft.pair_pass"):
-            (values, network, s_gx, s_gy, s_dvx, s_dvy), carry = self._fused_pass_carry(
+            (values, network, *sums), carry = self._fused_pass_carry(
                 x, params, centralized, carry, out=(None, None)
             )
         # the trajectory, allocated once: the dense pass writes each step's
@@ -552,12 +538,11 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         u_slots, reward_slots = traj["u"].unbind(1), traj["reward"].unbind(1)
         for t in range(n_steps):
             with span("gft.step"):
-                controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
-                u = self._rollout_action(controls, params)
+                u = self._expert_action(*sums, params)
                 x = self._rollout_integrate(x, u, params, generator)
                 with span("gft.pair_pass"):
-                    (values, network, s_gx, s_gy, s_dvx, s_dvy), carry = (
-                        self._fused_pass_carry(x, params, centralized, carry, out=slots[t]))
+                    (values, network, *sums), carry = self._fused_pass_carry(
+                        x, params, centralized, carry, out=slots[t])
                 u_slots[t].copy_(u)
                 reward_slots[t].copy_(_instant_cost(x))
                 for slot, v in zip(slots[t], (values, network)):
@@ -566,9 +551,9 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         final = dataclasses.replace(state, x=x, time=state.time + n_steps)
         return final, traj
 
-    def _rollout_action(self, controls, params: FlockingParams):
-        """Raw expert sums -> action (reference flocking_relative.py:208-211)."""
-        return controls.clamp(-10.0, 10.0) / params.action_scalar
+    def _expert_action(self, s_gx, s_gy, s_dvx, s_dvy, params: FlockingParams):
+        """The expert's action from its four sums: the hook variants override."""
+        return k1.turner_action(s_gx, s_gy, s_dvx, s_dvy, params.action_scalar)
 
     def _rollout_integrate(self, x, u, params: FlockingParams, generator):
         """One dynamics step inside the fused rollout (variants override)."""
@@ -771,8 +756,8 @@ class FlockingStochasticEnv(FlockingRelativeEnv):
             generator = torch.Generator(device=state.x.device).manual_seed(0)
         return super().expert_rollout(state, params, n_steps, centralized, generator)
 
-    def _rollout_action(self, controls, params):
-        u = controls.clamp(-10.0, 10.0) / params.action_scalar
+    def _expert_action(self, s_gx, s_gy, s_dvx, s_dvy, params):
+        u = super()._expert_action(s_gx, s_gy, s_dvx, s_dvy, params)
         return u.clamp(-params.stoch_max_accel, params.stoch_max_accel)
 
     def _rollout_integrate(self, x, u, params, generator):
@@ -813,12 +798,11 @@ class LargeFlockingEnv(FlockingRelativeEnv):
         return flocking_features_large(state.x, params.comm_radius, params.comm_radius2)
 
     def controller(self, state, params, generator=None, centralized=None):
+        """The fused pass's expert sums, then :meth:`_expert_action`."""
         if centralized is None:
             centralized = params.centralized
-        return turner_controller_large(
-            state.x, params.comm_radius, params.comm_radius2,
-            params.action_scalar, centralized=centralized,
-        )
+        _, _, *sums = self._fused_pass(state.x, params, centralized)
+        return self._expert_action(*sums, params)
 
     def _sums(self, x, params, channels: str = "core"):
         """Channel sums at ``x``: ``"core"``, or ``"expert"`` for the
@@ -830,31 +814,11 @@ class LargeFlockingEnv(FlockingRelativeEnv):
             x, x, 0, 0, params.comm_radius, params.comm_radius2, channels="full"
         )
 
-    def _unpack_sums(self, s, x, centralized):
-        """``(values, network, gx, gy, dvx, dvy)`` from one 16-channel sums
-        tensor: the SINGLE owner of the channel layout.
-
-        0-5 obs features, 8 degree; 6/7 gradient sums (centralized expert) or
-        10/11 adjacency-masked gradient sums (decentralized, reference
-        flocking_relative.py:201-207).  Centralized velocity-difference sums
-        take the closed form; decentralized ones ARE channels 0/3.
-        """
-        values, network = s[..., 0:6], s[..., 8]
-        if centralized:
-            n = x.shape[-2]
-            gx, gy = s[..., 6], s[..., 7]
-            dvx = n * x[..., 2] - x[..., 2].sum(dim=-1, keepdim=True)
-            dvy = n * x[..., 3] - x[..., 3].sum(dim=-1, keepdim=True)
-        else:
-            gx, gy = s[..., 10], s[..., 11]
-            dvx, dvy = s[..., 0], s[..., 3]
-        return values, network, gx, gy, dvx, dvy
-
     def _fused_pass(self, x, params, centralized, out=None):
         """K1's channel sums, unpacked; writes into no view: ``out`` is not
         read."""
         s = self._sums(x, params, channels="core" if centralized else "expert")
-        return self._unpack_sums(s, x, centralized)
+        return (*k1.feature_channels(s), *k1.expert_channels(s, x, centralized))
 
 
 class SparseFlockingEnv(LargeFlockingEnv):
@@ -886,15 +850,7 @@ class SparseFlockingEnv(LargeFlockingEnv):
         )
 
     def _obs(self, state: FlockingState, params: FlockingParams):
-        s = self._sums(state.x, params)
-        return s[..., 0:6], s[..., 8]
-
-    def controller(self, state, params, generator=None, centralized=None):
-        if centralized is None:
-            centralized = params.centralized
-        _, _, s_gx, s_gy, s_dvx, s_dvy = self._fused_pass(state.x, params, centralized)
-        controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
-        return self._rollout_action(controls, params)
+        return k1.feature_channels(self._sums(state.x, params))
 
     def _verlet_skin(self, params: FlockingParams):
         """The resolved Verlet slack, or ``None`` when reuse is off."""
@@ -918,4 +874,4 @@ class SparseFlockingEnv(LargeFlockingEnv):
             self._verlet_skin(params),
             channels="core" if centralized else "expert",
         )
-        return self._unpack_sums(s, x, centralized), carry
+        return (*k1.feature_channels(s), *k1.expert_channels(s, x, centralized)), carry

@@ -25,11 +25,10 @@ import math
 
 import torch
 
-from gym_flock_tpu_torch.core.env import Env, EnvState
+from gym_flock_tpu_torch.core.env import Env, EnvState, _rejection_reset
 from gym_flock_tpu_torch.core.spaces import Box
 from gym_flock_tpu_torch.ops.adjacency_matmul import adjacency_matmul
-from gym_flock_tpu_torch.ops.flocking_sums import flocking_sums_block
-from gym_flock_tpu_torch.utils.profiling import host_bool
+from gym_flock_tpu_torch.ops.flocking_sums import flocking_sums_block, reset_accepts, reset_minima
 
 __all__ = ["FlockingMultiParams", "FlockingMultiState", "FlockingMultiEnv"]
 
@@ -119,22 +118,15 @@ class FlockingMultiEnv(Env[FlockingMultiParams, FlockingMultiState]):
         ``>=``, old/flocking_multi.py:164), from K1's channels 8 and 9."""
         s = flocking_sums_block(x, x, 0, 0, params.comm_radius, params.comm_radius2,
                                 channels="full")
-        return (s[..., 8].amin(dim=-1) >= 2) & (torch.sqrt(s[..., 9].amin(dim=-1)) >= 0.1)
+        return reset_accepts(*reset_minima(s), 0.1, inclusive=True)
 
     def reset_env(self, generator: torch.Generator, params: FlockingMultiParams, n_envs: int):
-        """Rejection-sampling reset: each try redraws the batch, an env keeps
-        its first accepted draw, and after ``max_reset_tries`` draws an env
-        that never accepted keeps its last, as the JAX ``while_loop`` does."""
-        x = self._draw(generator, params, n_envs)
-        ok = self._reset_accept(x, params)
-        tries = 1
-        while tries < params.max_reset_tries and not host_bool(ok.all()):
-            x_new = self._draw(generator, params, n_envs)
-            ok_new = self._reset_accept(x_new, params)
-            x = torch.where(ok[:, None, None], x, x_new)
-            ok = ok | ok_new
-            tries += 1
-        self.last_reset_tries = tries
+        """Rejection-sampling reset (``core.env._rejection_reset``): each try
+        redraws the batch, an env keeps its first accepted draw, or its last
+        after ``max_reset_tries`` draws."""
+        x, self.last_reset_tries = _rejection_reset(
+            lambda: self._draw(generator, params, n_envs),
+            lambda x: self._reset_accept(x, params), params.max_reset_tries)
         state = self.init_state(x, params)
         return state, self._obs(state, params)
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from gym_flock_tpu_torch.ops.flocking_sums import float4_rows
+from gym_flock_tpu_torch.ops.flocking_sums import float4_rows, velocity_diff_sums
 from gym_flock_tpu_torch.ops.pairwise import mean_pool_normalize, radius_adjacency
 
 __all__ = [
@@ -110,7 +110,7 @@ def expert_sums(x, channels, adj, comm_radius, centralized: bool, masked: bool,
     """``(s_gx, s_gy, s_dvx, s_dvy)`` of the Turner expert from one pass's
     pairwise ``channels`` and adjacency: the potential gradients summed
     (adjacency-masked when not ``centralized``) and the velocity-difference
-    sums, by the closed form ``N v_i - sum_j v_j`` when centralized and not
+    sums, by the closed form ``velocity_diff_sums`` when centralized and not
     ``masked`` by an obstacle mask (whose zeroed rows and columns it would
     not see).  A caller that already has the decentralized velocity sums
     passes them as ``s_dvx``/``s_dvy``."""
@@ -122,9 +122,7 @@ def expert_sums(x, channels, adj, comm_radius, centralized: bool, masked: bool,
         if s_dvx is None:
             s_dvx, s_dvy = (dvx * adj).sum(dim=-1), (dvy * adj).sum(dim=-1)
     elif not masked:
-        n = x.shape[-2]
-        s_dvx = n * x[..., 2] - x[..., 2].sum(dim=-1, keepdim=True)
-        s_dvy = n * x[..., 3] - x[..., 3].sum(dim=-1, keepdim=True)
+        s_dvx, s_dvy = velocity_diff_sums(x)
     else:
         s_dvx, s_dvy = dvx.sum(dim=-1), dvy.sum(dim=-1)
     return gx.sum(dim=-1), gy.sum(dim=-1), s_dvx, s_dvy

@@ -13,6 +13,10 @@ adj = r^2 < comm_radius^2 over pairs of distinct global ids; the gradient
 is cut off where r^2 > comm_radius (NOT squared; reference
 flocking_relative.py:225).
 
+The layout is read here only (``*_channels``, ``reset_minima``,
+``combine_tiles``), and :func:`turner_action` owns the Turner expert's
+action over its sums, whichever pass (K1, K3 or K6) made them.
+
 Dispatch is by the device of the input: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (``csrc/block_sums.cu``, built at
 first use) or raises, any other device raises.  The plain version takes
@@ -31,6 +35,8 @@ __all__ = [
     "flocking_sums_block_reference",
     "flocking_features_large",
     "turner_controller_large",
+    "turner_action", "velocity_diff_sums", "feature_channels", "expert_channels",
+    "reset_minima", "reset_accepts", "combine_tiles",
     "launch_grid",
     "float4_rows",
 ]
@@ -223,10 +229,71 @@ def flocking_sums(x: torch.Tensor, comm_radius, comm_radius2) -> torch.Tensor:
     return flocking_sums_block(x, x, 0, 0, comm_radius, comm_radius2, channels="core")
 
 
+def feature_channels(s: torch.Tensor):
+    """``(state_values [B,m,6], degree [B,m])``: channels 0-5 and 8 of ``s``."""
+    return s[..., 0:6], s[..., 8]
+
+
+def velocity_diff_sums(x: torch.Tensor, v_sum: torch.Tensor | None = None, n=None):
+    """``(s_dvx, s_dvy)`` ``[B, m]``: sum_j (v_i - v_j) = N v_i - sum_j v_j
+    at the rows ``x [B, m, 4]``; a split swarm's block passes the swarm's
+    velocity total ``v_sum [B, 2]`` and size ``n``, else x's own are used."""
+    if v_sum is None:
+        n = x.shape[-2]
+        tx, ty = x[..., 2].sum(dim=-1, keepdim=True), x[..., 3].sum(dim=-1, keepdim=True)
+    else:
+        tx, ty = v_sum[..., 0:1], v_sum[..., 1:2]
+    return n * x[..., 2] - tx, n * x[..., 3] - ty
+
+
+def expert_channels(s: torch.Tensor, x: torch.Tensor, centralized: bool,
+                    v_sum: torch.Tensor | None = None, n=None):
+    """``(s_gx, s_gy, s_dvx, s_dvy)`` of the Turner expert at the rows ``x``
+    from their sums ``s``.  Centralized: the cutoff gradient sums 6/7 and
+    the velocity term by :func:`velocity_diff_sums` (``v_sum``, ``n`` as
+    there).  Decentralized (reference flocking_relative.py:201-207), both
+    terms masked by the adjacency: 10/11 of the "full" set and 0/3."""
+    if centralized:
+        return (s[..., 6], s[..., 7], *velocity_diff_sums(x, v_sum, n))
+    return s[..., 10], s[..., 11], s[..., 0], s[..., 3]
+
+
+def turner_action(s_gx, s_gy, s_dvx, s_dvy, action_scalar) -> torch.Tensor:
+    """The Turner expert's ``[B, m, 2]`` action from its four sums
+    (reference flocking_relative.py:208-211): ``-(sum grad + sum dv)``,
+    clipped to [-10, 10], over ``action_scalar``."""
+    controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
+    return controls.clamp(-10.0, 10.0) / action_scalar
+
+
+def reset_minima(s: torch.Tensor):
+    """``(min degree [B], min r^2 [B])`` over each swarm's rows of the
+    "full" sums ``s``: channels 8 and 9."""
+    return s[..., 8].amin(dim=-1), s[..., 9].amin(dim=-1)
+
+
+def reset_accepts(min_degree, min_r2, min_dist_thresh, inclusive: bool = False):
+    """``[B]`` reset acceptance (reference flocking_relative.py:164): min
+    degree >= 2, min distance > ``min_dist_thresh`` (``>=`` if ``inclusive``)."""
+    min_dist = torch.sqrt(min_r2)
+    near_ok = min_dist >= min_dist_thresh if inclusive else min_dist > min_dist_thresh
+    return (min_degree >= 2) & near_ok
+
+
+def combine_tiles(parts):
+    """One row block's ``[B, m, 16]`` sums from its tiles against column
+    blocks, in order: channel 9 (min r^2) by ``min``, the others by ``+``."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    if len(parts) > 1:
+        acc[..., 9] = torch.stack([q[..., 9] for q in parts]).amin(dim=0)
+    return acc
+
+
 def flocking_features_large(x: torch.Tensor, comm_radius, comm_radius2):
     """``(state_values [B,N,6], degree [B,N])`` without any [N, N] array."""
-    s = flocking_sums(x, comm_radius, comm_radius2)
-    return s[..., 0:6], s[..., 8]
+    return feature_channels(flocking_sums(x, comm_radius, comm_radius2))
 
 
 def turner_controller_large(
@@ -236,22 +303,8 @@ def turner_controller_large(
     action_scalar,
     centralized: bool = True,
 ) -> torch.Tensor:
-    """Turner expert through K1: ``[B, N, 2]`` actions.
-
-    Centralized: the closed form sum_j (v_i - v_j) = N v_i - sum_j v_j for
-    the velocity term plus the cutoff gradient sums (channels 6/7).
-    Decentralized (reference flocking_relative.py:201-207): both terms
-    masked by the adjacency, channels 0/3 and 10/11 of the "full" set.
-    """
-    n = x.shape[-2]
-    if centralized:
-        s = flocking_sums(x, comm_radius, comm_radius2)
-        s_gx, s_gy = s[..., 6], s[..., 7]
-        s_dvx = n * x[..., 2] - x[..., 2].sum(dim=-1, keepdim=True)
-        s_dvy = n * x[..., 3] - x[..., 3].sum(dim=-1, keepdim=True)
-    else:
-        s = flocking_sums_block(x, x, 0, 0, comm_radius, comm_radius2, channels="full")
-        s_gx, s_gy = s[..., 10], s[..., 11]
-        s_dvx, s_dvy = s[..., 0], s[..., 3]
-    controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
-    return controls.clamp(-10.0, 10.0) / action_scalar
+    """Turner expert through K1: ``[B, N, 2]`` actions from the "core"
+    sums when centralized, else the "full" set (:func:`expert_channels`)."""
+    s = flocking_sums_block(x, x, 0, 0, comm_radius, comm_radius2,
+                            channels="core" if centralized else "full")
+    return turner_action(*expert_channels(s, x, centralized), action_scalar)

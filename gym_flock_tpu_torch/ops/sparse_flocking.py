@@ -443,9 +443,7 @@ def sparse_reset_accept(
         s = k1.flocking_sums_block(x, x, 0, 0, comm_radius, comm_radius2, channels="full")
     else:
         s = sparse_sums_sorted(xs, table, comm_radius, comm_radius2, channels="full")
-    degree = s[..., 8].amin(dim=-1)
-    min_dist = torch.sqrt(s[..., 9].amin(dim=-1))
-    return (degree >= 2) & (min_dist > min_dist_thresh)
+    return k1.reset_accepts(*k1.reset_minima(s), min_dist_thresh)
 
 
 # ------------------------------------------------------------------ K4

@@ -31,8 +31,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from gym_flock_tpu_torch.core.env import _rejection_reset
 from gym_flock_tpu_torch.envs.flocking import FlockingParams, LargeFlockingEnv, _integrate
 from gym_flock_tpu_torch.ops.adjacency_matmul import adjacency_matmul_block
+from gym_flock_tpu_torch.ops import flocking_sums as k1
 from gym_flock_tpu_torch.ops.flocking_sums import flocking_sums_block
 from gym_flock_tpu_torch.parallel.distributed import mesh_device_type
 from gym_flock_tpu_torch.utils.profiling import host_bool
@@ -156,16 +158,8 @@ def all_gather_agents(t: torch.Tensor, group=None) -> torch.Tensor:
     return _AllGatherAgents.apply(group, t)
 
 
-def combine_ring_parts(parts):
-    """K1 ``[B, m, 16]`` partial sums of one row block, the own tile first
-    and then the visitors in ring order: channel 9 (min r^2) by ``min``, the
-    others by ``+``, in that order."""
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = acc + part
-    if len(parts) > 1:
-        acc[..., 9] = torch.stack([q[..., 9] for q in parts]).amin(dim=0)
-    return acc
+# K1 sums of one row block from its tiles, the own first, then the visitors in ring order
+combine_ring_parts = k1.combine_tiles
 
 
 def flocking_sums_sharded(x_local: torch.Tensor, comm_radius, comm_radius2, group=None,
@@ -195,8 +189,8 @@ def flocking_features_sharded(x_local: torch.Tensor, comm_radius, comm_radius2, 
                               mode: str = "ring"):
     """``(state_values [B, m, 6], degree [B, m])`` of this rank's agents; no
     ``[N, N]`` network exists (aggregate with :func:`adjacency_matmul_sharded`)."""
-    s = flocking_sums_sharded(x_local, comm_radius, comm_radius2, group, mode, channels="core")
-    return s[..., 0:6], s[..., 8]
+    return k1.feature_channels(
+        flocking_sums_sharded(x_local, comm_radius, comm_radius2, group, mode, channels="core"))
 
 
 def turner_controller_sharded(x_local: torch.Tensor, params: FlockingParams, group=None,
@@ -216,17 +210,12 @@ def turner_controller_sharded(x_local: torch.Tensor, params: FlockingParams, gro
     if sums is None:
         sums = flocking_sums_sharded(x_local, params.comm_radius, params.comm_radius2, group,
                                      mode, channels="core" if centralized else "full")
+    v_tot = None
     if centralized:
-        s_gx, s_gy = sums[..., 6], sums[..., 7]
         v_tot = x_local[..., 2:4].sum(dim=1)  # [B, 2]
         dist.all_reduce(v_tot, group=group)
-        s_dvx = n * x_local[..., 2] - v_tot[:, 0:1]
-        s_dvy = n * x_local[..., 3] - v_tot[:, 1:2]
-    else:
-        s_gx, s_gy = sums[..., 10], sums[..., 11]
-        s_dvx, s_dvy = sums[..., 0], sums[..., 3]
-    controls = torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1)
-    return controls.clamp(-10.0, 10.0) / params.action_scalar
+    return k1.turner_action(*k1.expert_channels(sums, x_local, centralized, v_tot, n),
+                            params.action_scalar)
 
 
 def adjacency_matmul_sharded(x_local: torch.Tensor, h_local: torch.Tensor, comm_radius2,
@@ -331,9 +320,9 @@ def flocking_reset_sharded(generator: torch.Generator, params: FlockingParams, n
 
     def accept(x):
         s = flocking_sums_sharded(x, params.comm_radius, params.comm_radius2, group, mode)
-        mins = torch.stack((s[..., 8].amin(dim=1), s[..., 9].amin(dim=1)))  # [2, e]
+        mins = torch.stack(k1.reset_minima(s))  # [2, e]
         dist.all_reduce(mins, op=dist.ReduceOp.MIN, group=group)
-        return (mins[0] >= 2) & (torch.sqrt(mins[1]) > params.min_dist_thresh)
+        return k1.reset_accepts(mins[0], mins[1], params.min_dist_thresh)
 
     def all_accepted(ok):
         flag = ok.all().to(torch.int32).reshape(1)
@@ -341,16 +330,7 @@ def flocking_reset_sharded(generator: torch.Generator, params: FlockingParams, n
             dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=dp_group)
         return host_bool(flag)  # the same on every rank: it is all-reduced
 
-    x = draw()
-    ok = accept(x)
-    tries = 1
-    while tries < params.max_reset_tries and not all_accepted(ok):
-        x_new = draw()
-        ok_new = accept(x_new)
-        x = torch.where(ok[:, None, None], x, x_new)
-        ok = ok | ok_new
-        tries += 1
-    last_reset_tries = tries
+    x, last_reset_tries = _rejection_reset(draw, accept, params.max_reset_tries, all_accepted)
     return x
 
 

@@ -101,9 +101,8 @@ def collect_large_flocking_batch(env, params, generator: torch.Generator, n_envs
     carry = env._fused_carry_init(x, params)
     xs, feats, acts = [], [], []
     for _ in range(n_steps):
-        (values, _, s_gx, s_gy, s_dvx, s_dvy), carry = env._fused_pass_carry(
-            x, params, params.centralized, carry)
-        u = env._rollout_action(torch.stack((-s_gx - s_dvx, -s_dvy - s_gy), dim=-1), params)
+        (values, _, *sums), carry = env._fused_pass_carry(x, params, params.centralized, carry)
+        u = env._expert_action(*sums, params)
         xs.append(x)
         feats.append(values)
         acts.append(u)

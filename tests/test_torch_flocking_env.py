@@ -193,6 +193,17 @@ def test_large_env_takes_a_non_contiguous_state(centralized):
     np.testing.assert_array_equal(traj["network"].numpy(), np.asarray(jtraj["network"]))
 
 
+@pytest.mark.parametrize("centralized", [True, False])
+@pytest.mark.parametrize("env_id, n", [("FlockingLarge-v0", 64), ("FlockingSparse-v0", 256)])
+def test_controller_is_the_fused_rollouts_first_action(env_id, n, centralized):
+    """``controller()`` is the fused pass then the action hook, as each
+    step of ``expert_rollout`` is: bit for bit the rollout's first action."""
+    tenv, tp = gft.make(env_id, n_agents=n, centralized=centralized)
+    state, _ = tenv.reset_env(torch.Generator().manual_seed(0), tp, B)
+    _, traj = tenv.expert_rollout(state, tp, 2)
+    assert torch.equal(tenv.controller(state, tp), traj["u"][:, 0])
+
+
 def test_non_contiguous_state_through_the_batch_rollout_and_the_collect():
     """``batch_expert_rollout(init_state=)`` and
     ``collect_large_flocking_batch(init_state=)`` from a strided view give

@@ -12,6 +12,7 @@ are held to the acceptance invariants (min degree >= 2, min distance >=
 an aggregation over every pooled tap.
 """
 import dataclasses
+import json
 
 import numpy as np
 import jax
@@ -25,6 +26,7 @@ from gym_flock_tpu.envs import flocking_multi as jfm
 from gym_flock_tpu_torch import convert
 from gym_flock_tpu_torch.envs import flocking_multi as tfm
 from gym_flock_tpu_torch.ops.adjacency_matmul import adjacency_matmul_block_reference
+from gym_flock_tpu_torch.utils import profiling
 from tests.test_torch_flocking_env import STATE_ATOL, SUM_TOL, U_ATOL, _rel
 
 torch.set_num_threads(2)
@@ -182,6 +184,26 @@ def test_reset_keeps_last_draw_after_max_tries():
     gen = torch.Generator().manual_seed(5)
     draws = [tenv._draw(gen, tp, 4) for _ in range(3)]
     assert torch.equal(state.x, draws[-1])
+
+
+def test_a_reset_that_never_accepts_runs_the_shared_loop(monkeypatch, tmp_path):
+    """The rejection loop of ``core.env`` through this env: every draw but
+    the last ends in one host read, each draw in one ``gft.reset.draw``
+    span."""
+    monkeypatch.setattr(tfm.FlockingMultiEnv, "_reset_accept",
+                        lambda self, x, params: torch.zeros(x.shape[0], dtype=torch.bool))
+    tenv, tp = gft.make("FlockingMulti-v0", max_reset_tries=5)
+    before = profiling.syncs
+    tenv.reset_env(torch.Generator().manual_seed(1), tp, 2)
+    assert tenv.last_reset_tries == tp.max_reset_tries
+    assert profiling.syncs - before == tenv.last_reset_tries - 1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tenv.reset_env(torch.Generator().manual_seed(2), tp, 2)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    draws = [e for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("ph") == "X" and e.get("name") == "gft.reset.draw"]
+    assert len(draws) == tenv.last_reset_tries == tp.max_reset_tries
 
 
 def test_factory_and_spaces_match_jax():
