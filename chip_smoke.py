@@ -257,6 +257,19 @@ Phases, each printing one line:
    the plain version and its bound (median of 7).  These checks' and
    timings' launches are not counted in the kernel line's ``launches``,
    which sums phases 5 and 21.
+38. K8 (``step_tail``) against its plain version at the three flocking
+   cells' shapes (B=65,535 and B=8192 at N=100 on K6's sums, B=16 at
+   N=4096 on K1's), each on every source of sums the shape allows (K6's
+   interleaved sums, K1's channels 6/7 with the closed form's velocity
+   sums, K1's decentralized 10/11/0/3), without and with an integration
+   mask (agents 0-3 frozen, the masked envs' scale 1), writing into a
+   trajectory's slots: x' and u bit for bit, the reward within
+   ``STEP_TAIL_REWARD_TOL`` of 1 + the swarm's mean squared velocity, the
+   slots around untouched.  Timed (10 launches queued, over 10; one call
+   alone as ``call_ms``) beside the plain version and its byte bound, 56 B
+   N + 4 B a swarm.  Phases 4, 5 and 21 check K8 once a step of each fused
+   rollout (none in ``FlockingStochastic-v0``, whose step is its own); the
+   kernel line's ``launches`` sums those.
 
 Then one JSON line describing each kernel (its time, its plain version's,
 and its bound: the larger of the operations it must do over the f32 peak
@@ -317,6 +330,12 @@ EDGE_CASES = ("band", "all in reach", "none in reach", "coincident pair")
 # in f32 chunks of at most 32 columns added in f64 by K6
 DENSE_TOL = 1e-5
 DENSE_QUEUED = 10  # K6 and K7 launches a queued timing queues back to back
+# K8's reward against the plain version's, relative to 1 + the swarm's mean
+# squared velocity (summed over both components), the benchmark's scale:
+# torch.var sums the f32 velocities in f32 (Welford, PyTorch's order), K8
+# their deviations from agent 0's in f64, so the two differ by the plain
+# version's own rounding, a few f32 ulps of that scale
+STEP_TAIL_REWARD_TOL = 1e-5
 
 
 def _sync():
@@ -619,13 +638,14 @@ def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     import gym_flock_tpu_torch as gft
     from gym_flock_tpu_torch.envs.flocking import _integrate
     from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import step_tail as k8
     from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout
 
     env, params = gft.make("FlockingLarge-v0", **overrides)
     gen = torch.Generator(device=device).manual_seed(SEED)
     gen_state = gen.get_state()
     _sync()
-    k1.launches = 0
+    k1.launches = k8.launches = 0
     t0 = time.perf_counter()
     final, traj = batch_expert_rollout(env, params, gen, n_envs, n_steps)
     _sync()
@@ -636,6 +656,9 @@ def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     if launches != expected:
         raise AssertionError(
             f"K1 launches {launches} != {tries} reset draws + 1 + 1 + {n_steps} steps")
+    k8_launches = k8.launches
+    if k8_launches != n_steps:
+        raise AssertionError(f"K8 launches {k8_launches}, not one a step ({n_steps})")
     for key in ("u", "reward", "values", "network"):
         if not torch.isfinite(traj[key]).all():
             raise AssertionError(f"non-finite {key} in the FlockingLarge rollout")
@@ -671,8 +694,8 @@ def phase_large(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     view = check_strided_state(env, params, final.x)
     n = params.n_agents
     return {
-        "launches": launches, "reset_tries": tries, "u_err": u_err, "values_rel": v_rel,
-        "strided_state": view,
+        "launches": launches, "k8_launches": k8_launches, "reset_tries": tries, "u_err": u_err,
+        "values_rel": v_rel, "strided_state": view,
         "seconds": seconds, "rollout_seconds": roll_s,
         "env_steps_per_s": n_envs * n_steps / seconds,
         "agent_steps_per_s": n_envs * n_steps * n / seconds,
@@ -717,12 +740,13 @@ def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     import gym_flock_tpu_torch as gft
     from gym_flock_tpu_torch.ops import dense_flocking as k6
     from gym_flock_tpu_torch.ops import flocking_sums as k1
+    from gym_flock_tpu_torch.ops import step_tail as k8
     from gym_flock_tpu_torch.parallel.rollout import batch_expert_rollout
 
     env, params = gft.make("FlockingRelative-v0", **overrides)
     gen = torch.Generator(device=device).manual_seed(SEED)
     _sync()
-    k1.launches = k6.launches = 0
+    k1.launches = k6.launches = k8.launches = 0
     t0 = time.perf_counter()
     final, traj = batch_expert_rollout(env, params, gen, n_envs, n_steps)
     _sync()
@@ -733,6 +757,8 @@ def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
         raise AssertionError(f"K1 launches {launches}, reset draws {tries}")
     if k6.launches != n_steps + 1:
         raise AssertionError(f"K6 launches {k6.launches}, not {n_steps + 1}")
+    if k8.launches != n_steps:
+        raise AssertionError(f"K8 launches {k8.launches}, not one a step ({n_steps})")
     n = params.n_agents
     shapes = {"u": (n_envs, n_steps, n, 2), "values": (n_envs, n_steps, n, 6),
               "network": (n_envs, n_steps, n, n), "reward": (n_envs, n_steps)}
@@ -747,10 +773,12 @@ def phase_relative(device: str, n_envs: int, n_steps: int, **overrides) -> dict:
     env.expert_rollout(final, params, n_steps)
     _sync()
     roll_s = time.perf_counter() - t1
-    if k6.launches != 2 * (n_steps + 1):
-        raise AssertionError(f"K6 launches {k6.launches}, not {2 * (n_steps + 1)}")
+    if k6.launches != 2 * (n_steps + 1) or k8.launches != 2 * n_steps:
+        raise AssertionError(f"K6 launches {k6.launches}, not {2 * (n_steps + 1)}; K8 "
+                             f"{k8.launches}, not {2 * n_steps}")
     return {
         "launches": launches, "reset_tries": tries, "k6_launches": k6.launches,
+        "k8_launches": k8.launches,
         "seconds": seconds, "rollout_seconds": roll_s,
         "env_steps_per_s": n_envs * n_steps / seconds,
         "rollout_env_steps_per_s": n_envs * n_steps / roll_s,
@@ -857,6 +885,117 @@ def phase_dense_pass(device: str, shapes) -> dict:
         timing["share"] = timing["bound_ms"] / timing["ms"]
         out["timings"].append(timing)
         del values, network, slots
+    return out
+
+
+STEP_TAIL_SOURCES = ("k6", "k1", "k1_decentralized")
+
+
+def step_tail_sums(x, source: str, cr: float = 0.9):
+    """The Turner expert's four sums at ``x`` as a main path hands them to
+    K8: ``"k6"``, K6's ``[B,N,4]`` unbound (element stride 4); ``"k1"``,
+    K1's channels 6/7 (stride 16) and the closed form's contiguous velocity
+    sums; ``"k1_decentralized"``, K1's channels 10/11/0/3 (stride 16)."""
+    from gym_flock_tpu_torch.ops import dense_flocking as k6
+    from gym_flock_tpu_torch.ops import flocking_sums as k1
+
+    if source == "k6":
+        return k6.dense_pass(x, cr, cr * cr, True, True, out=(None, None))[2:]
+    central = source == "k1"
+    s = k1.flocking_sums_block(x, x, 0, 0, cr, cr * cr, "core" if central else "full")
+    return k1.expert_channels(s, x, central)
+
+
+def hold_step_tail(what: str, got, want) -> float:
+    """K8's ``(x_next, u, reward)`` against the plain version's: x_next and
+    u bit for bit (NaN in the same places), the reward within
+    STEP_TAIL_REWARD_TOL of 1 + the swarm's mean squared velocity; returns
+    the reward's largest error over that scale."""
+    import torch
+
+    for name, g, w in zip(("x_next", "u"), got[:2], want[:2]):
+        nan = torch.isnan(w)
+        if not torch.equal(torch.isnan(g), nan):
+            raise AssertionError(f"{what}: NaN {name} in other places than the plain version's")
+        if not torch.equal(g[~nan].view(torch.int32), w[~nan].view(torch.int32)):
+            raise AssertionError(f"{what}: {name} differs from the plain version's bits")
+    v = want[0][..., 2:4].double()
+    scale = 1.0 + (v * v).mean(dim=-2).sum(dim=-1)
+    nan = torch.isnan(want[2])
+    if not torch.equal(torch.isnan(got[2]), nan):
+        raise AssertionError(f"{what}: NaN rewards in other places than the plain version's")
+    err = ((got[2].double() - want[2].double()).abs() / scale)[~nan]
+    if not bool((err <= STEP_TAIL_REWARD_TOL).all()):
+        raise AssertionError(f"{what}: a reward off by {float(err.max()):.3e} of its scale")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def run_step_tail(fn, x, sums, mask, action_scale: float, slots: int = 3, slot: int = 1):
+    """``fn`` (``step_tail`` or its plain version) at ``x`` with the flocking
+    envs' action scalar and dt, writing into step ``slot`` of fresh ``u``
+    and ``reward`` trajectories filled with 7; returns ``(x_next, u, reward,
+    u_traj, reward_traj)``."""
+    import torch
+
+    b, n, _ = x.shape
+    u_traj = torch.full((b, slots, n, 2), 7.0, device=x.device)
+    reward_traj = torch.full((b, slots), 7.0, device=x.device)
+    x_next = fn(x, *sums, 10.0, action_scale, 0.01, mask, u_traj[:, slot],
+                reward_traj[:, slot])
+    return x_next, u_traj[:, slot], reward_traj[:, slot], u_traj, reward_traj
+
+
+def phase_step_tail(device: str, cases) -> dict:
+    """Phase 38: K8 against its plain version at each ``(B, N, source)`` of
+    ``cases`` (reset draws; every source the shape allows, each without and
+    with an integration mask and the masked envs' scale 1), into a
+    trajectory's slots; timed at each case's own source without a mask
+    beside its byte bound and the plain version."""
+    import torch
+
+    from gym_flock_tpu_torch.ops import dense_flocking as k6
+    from gym_flock_tpu_torch.ops import step_tail as k8
+
+    out = {"worst_reward": 0.0, "checks": 0, "timings": []}
+    for b, n, timed_source in cases:
+        x = draw_swarms(b, n, device, SEED + b + n)
+        mask = (torch.arange(n, device=device) >= 4).to(x.dtype)
+        for source in STEP_TAIL_SOURCES:
+            if source == "k6" and n > k6.MAX_AGENTS:
+                continue
+            sums = step_tail_sums(x, source)
+            for m, scale in ((None, 10.0), (mask, 1.0)):
+                before = k8.launches
+                got = run_step_tail(k8.step_tail, x, sums, m, scale)
+                _sync()
+                if k8.launches != before + 1:
+                    raise AssertionError(f"K8 at B={b} N={n}: not one launch")
+                want = run_step_tail(k8.step_tail_reference, x, sums, m, scale)
+                what = f"K8 B={b} N={n} sums={source} mask={m is not None}"
+                out["worst_reward"] = max(out["worst_reward"],
+                                          hold_step_tail(what, got[:3], want[:3]))
+                for t in (got[3][:, 0::2], got[4][:, 0::2]):
+                    if not bool((t == 7.0).all()):
+                        raise AssertionError(f"{what}: wrote outside its slot")
+                out["checks"] += 1
+                del got, want
+            del sums
+        sums = step_tail_sums(x, timed_source)
+        u_traj = torch.empty(b, 2, n, 2, device=device)
+        reward_traj = torch.empty(b, 2, device=device)
+
+        def tail(fn):
+            return fn(x, *sums, 10.0, 10.0, 0.01, None, u_traj[:, 1], reward_traj[:, 1])
+
+        moved = 56 * b * n + 4 * b  # x, sums read; x', u, reward written
+        timing = {"B": b, "N": n, "sums": timed_source,
+                  "ms": queued_ms(lambda: tail(k8.step_tail)),
+                  "call_ms": time_ms(lambda: tail(k8.step_tail)),
+                  "plain_ms": time_ms(lambda: tail(k8.step_tail_reference)),
+                  "bytes": moved, **bound(0, moved)}
+        timing["share"] = timing["bound_ms"] / timing["ms"]
+        out["timings"].append(timing)
+        del x, sums, u_traj, reward_traj
     return out
 
 
@@ -1272,9 +1411,10 @@ def reset_counts() -> None:
     from gym_flock_tpu_torch.ops import flocking_sums as k1
     from gym_flock_tpu_torch.ops import rowmin as k5
     from gym_flock_tpu_torch.ops import sparse_flocking as sf
+    from gym_flock_tpu_torch.ops import step_tail as k8
 
     k1.launches = k2.launches = k2.backward_launches = k5.launches = k6.launches = 0
-    k7.launches = 0
+    k7.launches = k8.launches = 0
     sf.launches = sf.adj_launches = sf.adj_backward_launches = 0
     sf.overflow_passes = sf.adj_overflow_passes = sf.verlet_rebuilds = 0
 
@@ -2228,7 +2368,9 @@ def phase_flocking_variants(device: str, variants, n_steps: int) -> dict:
     from gym_flock_tpu_torch.ops import dense_flocking as k6
     from gym_flock_tpu_torch.ops import flocking_sums as k1
 
-    out = {"k1_launches": 0, "k6_launches": 0,
+    from gym_flock_tpu_torch.ops import step_tail as k8
+
+    out = {"k1_launches": 0, "k6_launches": 0, "k8_launches": 0,
            "k1_vs_plain": {"rel": 0.0, "ulp9": 0, "abs": 0.0}}
     for env_id, n_envs in variants:
         env, params = gft.make(env_id)
@@ -2254,6 +2396,12 @@ def phase_flocking_variants(device: str, variants, n_steps: int) -> dict:
         if k6_launches != (n_steps + 1 if dense else 0):
             raise AssertionError(f"{env_id}: K6 {k6_launches} launches in {n_steps} steps")
         out["k6_launches"] += k6_launches
+        # the step tail is K8 once a step, but where a variant has its own
+        fused_tail = type(env)._rollout_tail is FlockingRelativeEnv._rollout_tail
+        k8_launches = k8.launches
+        if k8_launches != (n_steps if fused_tail else 0):
+            raise AssertionError(f"{env_id}: K8 {k8_launches} launches in {n_steps} steps")
+        out["k8_launches"] += k8_launches
         check_all_finite(env_id, final.x, *obs0, *traj.values())
         first = flocking_first_step_on_host(env, params, state0, traj, gen_state, device)
         if launches:
@@ -2261,7 +2409,8 @@ def phase_flocking_variants(device: str, variants, n_steps: int) -> dict:
             out["k1_vs_plain"] = {k: max(v, err[k]) for k, v in out["k1_vs_plain"].items()}
         out["k1_launches"] += launches
         out[env_id] = {"B": n_envs, "N": params.n_agents, "k1_launches": launches,
-                       "k6_launches": k6_launches, "reset_tries": tries, "reset_ms": reset_s * 1e3,
+                       "k6_launches": k6_launches, "k8_launches": k8_launches,
+                       "reset_tries": tries, "reset_ms": reset_s * 1e3,
                        "ms_a_step": roll_s * 1e3 / n_steps,
                        "env_steps_per_s": n_envs * n_steps / roll_s,
                        "mean_reward": float(traj["reward"].mean()), "first_step": first}
@@ -4282,6 +4431,11 @@ def main() -> int:
     _sync()
     print("phase 37 K6 vs plain B=8192 and B=8, N=100: " + json.dumps(t37))
 
+    # 38. K8 against its plain version at the three flocking cells' shapes
+    t38 = phase_step_tail(device, [(65535, 100, "k6"), (8192, 100, "k6"), (16, 4096, "k1")])
+    _sync()
+    print("phase 38 K8 vs plain B=65535 and B=8192 N=100, B=16 N=4096: " + json.dumps(t38))
+
     big = k["timings"][0]
     k5_big = k5r["cases"][0]
     k3_big = k3["timings"][0]
@@ -4397,6 +4551,19 @@ def main() -> int:
         "bound_by": xf["k7_timing"]["bound_by"],
         "library_ms": None,
         "timings": [xf["k7_timing"], cv["k7_timing"]],
+    }, {
+        "name": "step_tail",
+        "route": "cuda",
+        "source": "gym_flock_tpu_torch/csrc/step_tail.cu",
+        "replaces": None,
+        "launches": large["k8_launches"] + rel["k8_launches"] + t21["k8_launches"],
+        "max_rel_err": t38["worst_reward"],
+        "ms": t38["timings"][0]["ms"],
+        "plain_ms": t38["timings"][0]["plain_ms"],
+        "bound_ms": t38["timings"][0]["bound_ms"],
+        "bound_by": t38["timings"][0]["bound_by"],
+        "library_ms": None,
+        "timings": t38["timings"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -12,7 +12,11 @@ At small N the fused observation/expert pass of the rollout is K6
 (``ops.dense_flocking``), one kernel launch a step on the card, where the
 JAX package runs dense XLA ops; its plain version (dense PyTorch over
 ``[B, N, N]`` pair tensors) runs on the host, in float64 and under an
-obstacle mask.  ``LargeFlockingEnv`` computes every pairwise reduction through K1
+obstacle mask.  After each pass, the rollout's step tail (the expert's
+action, the Euler step, the reward and the trajectory writes) is K8
+(``ops.step_tail``), one launch a step on the card, but in
+``FlockingStochasticEnv``, whose dynamics are its own.
+``LargeFlockingEnv`` computes every pairwise reduction through K1
 (``ops.flocking_sums``), and the rejection reset's acceptance test runs on
 K1's "full" channels (min r^2 and degree) for every env that draws its
 reset.  ``SparseFlockingEnv`` runs them on the cell-list pipeline and K3
@@ -44,6 +48,9 @@ from gym_flock_tpu_torch.ops.flocking_sums import (
     flocking_sums_block,
 )
 from gym_flock_tpu_torch.ops.pairwise import mean_pool_normalize, radius_adjacency
+from gym_flock_tpu_torch.ops.step_tail import instant_cost as _instant_cost
+from gym_flock_tpu_torch.ops.step_tail import integrate as _integrate
+from gym_flock_tpu_torch.ops.step_tail import step_tail
 from gym_flock_tpu_torch.utils import formations
 from gym_flock_tpu_torch.utils.profiling import span
 
@@ -198,33 +205,6 @@ def flocking_obs_expert_pass(
     """
     return dense_pass(x, params.comm_radius, params.comm_radius2, centralized,
                       params.mean_pooling, obstacle_mask, out)
-
-
-def _instant_cost(x: torch.Tensor) -> torch.Tensor:
-    """``[B]`` minus the summed velocity variances (reference
-    flocking_relative.py:145-147); ``correction=0`` is NumPy's ddof=0."""
-    v = x[..., 2:4]
-    return -1.0 * torch.var(v, dim=-2, correction=0).sum(dim=-1)
-
-
-def _integrate(x: torch.Tensor, u: torch.Tensor, dt,
-               mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Euler double-integrator update (reference flocking_relative.py:98-105).
-
-    ``dt`` is a float or a ``[B]`` tensor (one dt per swarm).  ``mask``
-    (float ``[N]``, 0 = frozen agent) makes the masked agents ignore their
-    control input (flocking_leader.py:27-31, flocking_obstacle.py:41-47).
-    """
-    if isinstance(dt, torch.Tensor) and dt.dim() == 1:
-        dt = dt[:, None]
-    ux, uy = u[..., 0], u[..., 1]
-    if mask is not None:
-        ux, uy = ux * mask, uy * mask
-    px = x[..., 0] + x[..., 2] * dt + ux * dt * dt * 0.5
-    py = x[..., 1] + x[..., 3] * dt + uy * dt * dt * 0.5
-    vx = x[..., 2] + ux * dt
-    vy = x[..., 3] + uy * dt
-    return torch.stack((px, py, vx, vy), dim=-1)
 
 
 # =============================================================================
@@ -538,25 +518,34 @@ class FlockingRelativeEnv(Env[FlockingParams, FlockingState]):
         u_slots, reward_slots = traj["u"].unbind(1), traj["reward"].unbind(1)
         for t in range(n_steps):
             with span("gft.step"):
-                u = self._expert_action(*sums, params)
-                x = self._rollout_integrate(x, u, params, generator)
+                x = self._rollout_tail(x, sums, params, generator, u_slots[t], reward_slots[t])
                 with span("gft.pair_pass"):
                     (values, network, *sums), carry = self._fused_pass_carry(
                         x, params, centralized, carry, out=slots[t])
-                u_slots[t].copy_(u)
-                reward_slots[t].copy_(_instant_cost(x))
                 for slot, v in zip(slots[t], (values, network)):
                     if v is not slot:
                         slot.copy_(v)
         final = dataclasses.replace(state, x=x, time=state.time + n_steps)
         return final, traj
 
+    def _rollout_tail(self, x, sums, params: FlockingParams, generator, u_slot, reward_slot):
+        """One step of the fused rollout after its pass: the expert's action
+        from the pass's four ``sums`` into ``u_slot``, the Euler step, the
+        reward at the new state into ``reward_slot``; returns the new state.
+        ``ops.step_tail.step_tail`` (K8 on the card) with the env's action
+        scale and integration mask; a variant whose action or dynamics
+        differ overrides this hook."""
+        return step_tail(x, *sums, params.action_scalar, self._action_scale(params), params.dt,
+                         self._integration_mask(params, x), u_slot, reward_slot)
+
     def _expert_action(self, s_gx, s_gy, s_dvx, s_dvy, params: FlockingParams):
         """The expert's action from its four sums: the hook variants override."""
         return k1.turner_action(s_gx, s_gy, s_dvx, s_dvy, params.action_scalar)
 
     def _rollout_integrate(self, x, u, params: FlockingParams, generator):
-        """One dynamics step inside the fused rollout (variants override)."""
+        """One dynamics step from the expert's action (variants override):
+        the collects of ``parallel.train`` and ``parallel.dagger``, and
+        ``FlockingStochasticEnv``'s rollout tail."""
         return _integrate(x, u * self._action_scale(params), params.dt,
                           self._integration_mask(params, x))
 
@@ -762,6 +751,15 @@ class FlockingStochasticEnv(FlockingRelativeEnv):
 
     def _rollout_integrate(self, x, u, params, generator):
         return self._integrate_scaled(x, u, self._draw_dt(generator, params, x), params)
+
+    def _rollout_tail(self, x, sums, params, generator, u_slot, reward_slot):
+        """The plain sequence: a dt a swarm drawn from ``generator``, the
+        clamp and the scaling are this variant's own."""
+        u = self._expert_action(*sums, params)
+        x = self._rollout_integrate(x, u, params, generator)
+        u_slot.copy_(u)
+        reward_slot.copy_(_instant_cost(x))
+        return x
 
 
 class FlockingTwoFlocksEnv(FlockingRelativeEnv):

@@ -1,7 +1,7 @@
 """Pairwise operations: dense helpers (``pairwise``) and the kernels'
 wrappers with their plain versions (``flocking_sums``: K1,
 ``adjacency_matmul``: K2, ``sparse_flocking``: K3/K4, ``rowmin``: K5,
-``dense_flocking``: K6, ``conflicts``: K7).
+``dense_flocking``: K6, ``conflicts``: K7, ``step_tail``: K8).
 
 The names of ``gym_flock_tpu/ops/__init__.py`` are here, but for
 ``flocking_sums`` and ``adjacency_matmul``: bound here, those functions

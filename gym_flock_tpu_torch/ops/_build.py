@@ -136,5 +136,8 @@ def load():
         lib.gft_dense_pass_max_agents.restype = ctypes.c_int
         lib.gft_resolve_conflicts.argtypes = [p, p, p, i, i, p]
         lib.gft_resolve_conflicts.restype = ctypes.c_int
+        lib.gft_step_tail.argtypes = [p, p, p, p, p, ctypes.POINTER(ll), p, i, i, f, f, f, p, ll,
+                                      p, ll, p, i, p]
+        lib.gft_step_tail.restype = ctypes.c_int
         _lib = lib
     return _lib
