@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from gym_flock_tpu_torch.ops.adjacency_matmul import khop_aggregate
+from gym_flock_tpu_torch.utils.profiling import span
 
 __all__ = [
     "AggregationGNN",
@@ -241,6 +242,7 @@ class EdgeGraphNet(nn.Module):
         self.node_mlps = nn.ModuleList(
             _MLP(2 * latent, (latent, latent), device=device) for _ in range(rounds))
         self.logit_head = _MLP(latent, (latent, 1), device=device)
+        self.message_rows = 0
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
     def mlps(self):
@@ -269,11 +271,13 @@ class EdgeGraphNet(nn.Module):
         h = self.node_encoder(nodes)
         e_feat = self.edge_encoder(edges)
         for message_mlp, node_mlp in zip(self.message_mlps, self.node_mlps):
-            flat = h.reshape(b * n, -1)
-            msg_in = torch.cat([e_feat, flat[send].reshape(b, e, -1),
-                                flat[recv].reshape(b, e, -1)], dim=-1)
-            msg = message_mlp(msg_in) * mask
-            agg = torch.zeros_like(flat).index_add_(0, recv, msg.reshape(b * e, -1))
-            h = node_mlp(torch.cat([h, agg.reshape(b, n, -1)], dim=-1))
-            e_feat = msg
+            with span("gft.gnn.round"):
+                flat = h.reshape(b * n, -1)
+                msg_in = torch.cat([e_feat, flat[send].reshape(b, e, -1),
+                                    flat[recv].reshape(b, e, -1)], dim=-1)
+                msg = message_mlp(msg_in) * mask
+                agg = torch.zeros_like(flat).index_add_(0, recv, msg.reshape(b * e, -1))
+                h = node_mlp(torch.cat([h, agg.reshape(b, n, -1)], dim=-1))
+                e_feat = msg
+            self.message_rows += b * e
         return h, self.logit_head(e_feat)

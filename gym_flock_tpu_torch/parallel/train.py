@@ -11,6 +11,11 @@ learning rate is a float or, as optax's ``adam`` takes it, a schedule
 ``step -> float`` (:func:`cosine_decay_schedule`) read at the count of
 updates already taken: the first update uses ``schedule(0)``.
 
+While a profiler runs, a train step records the spans ``gft.train.collect``
+and ``gft.train.update``, and an update ``gft.train.forward``,
+``gft.train.backward`` and ``gft.train.adam`` inside its own
+(``utils.profiling.span``: off, a flag read each).
+
 Randomness comes from one explicit ``torch.Generator``, on the device the
 env and the model run on: the weights' initialisation, then the resets of
 every collected batch.  A checkpoint keeps the model's and the optimizer's
@@ -33,6 +38,7 @@ import torch.distributed as dist
 from gym_flock_tpu_torch.models.gnn import AggregationGNN, LargeAggregationGNN
 from gym_flock_tpu_torch.parallel.distributed import local_shard_size, rank_generator
 from gym_flock_tpu_torch.parallel.rollout import rollout
+from gym_flock_tpu_torch.utils.profiling import span
 
 __all__ = [
     "FlockingImitationTrainer",
@@ -242,18 +248,24 @@ class _ImitationTrainer:
 
     def update(self, batch) -> torch.Tensor:
         """One Adam step on ``batch``; returns the loss before the step."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._batch_loss(batch)
-        loss.backward()
-        self.adam_step()
-        return loss.detach()
+        with span("gft.train.update"):
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("gft.train.forward"):
+                loss = self._batch_loss(batch)
+            with span("gft.train.backward"):
+                loss.backward()
+            with span("gft.train.adam"):
+                self.adam_step()
+            return loss.detach()
 
     def collect(self, generator: torch.Generator, n_envs: int, n_steps: int):
         raise NotImplementedError
 
     def train_step(self, generator: torch.Generator, n_envs: int, n_steps: int) -> torch.Tensor:
         """Collect a fresh expert batch from ``generator``, then :meth:`update`."""
-        return self.update(self.collect(generator, n_envs, n_steps))
+        with span("gft.train.collect"):
+            batch = self.collect(generator, n_envs, n_steps)
+        return self.update(batch)
 
     def fit(self, generator: torch.Generator, n_iters: int, n_envs: int, n_steps: int,
             ckpt_path: Optional[str] = None, ckpt_every: int = 0,
